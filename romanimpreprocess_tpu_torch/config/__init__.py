@@ -1,0 +1,99 @@
+"""Configuration handling: YAML configs, READS decoding, backends, device.
+
+The reference drives everything from plain YAML dicts with UPPERCASE
+keys and two embedded mini-languages: the READS flattened-pair
+read-pattern encoding and the noise-layer command strings like
+``'Rz4PbrS2C1'``.  The ``*_BACKEND`` keys keep the JAX package's names
+and values; here they choose between a hand-written CUDA kernel and its
+plain PyTorch version.
+"""
+
+import re
+
+import torch
+import yaml
+
+#: backend names that select the hand-written CUDA kernel.  The JAX
+#: package's three Pallas IPC variants ('pallas' blocked slabs,
+#: 'pallas-stream' ring buffer, 'pallas-frame' raw frame) compute the
+#: same inverse; one CUDA frame kernel serves all three.
+KERNEL_NAMES = ("cuda", "pallas", "pallas-stream", "pallas-frame")
+
+
+def resolve_device(device=None):
+    """The torch device an entry point runs on.
+
+    ``None`` means ``cuda``.  There is no silent CPU fallback: without
+    a GPU the caller has to ask for ``device="cpu"`` explicitly.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
+    return dev
+
+
+def resolve_backend(config, key, device):
+    """Resolve a ``*_BACKEND`` config key to ``'cuda'`` or ``'xla'``.
+
+    'auto' (the default) is the CUDA kernel on a ``cuda`` device and the
+    plain PyTorch version elsewhere; 'xla' is always the plain version
+    (the name is the JAX package's); 'cuda' and the Pallas names select
+    the CUDA kernel, which a CPU device cannot run.
+    """
+    v = str(config.get(key, "auto")).lower()
+    dev = torch.device(device)
+    if v == "auto":
+        return "cuda" if dev.type == "cuda" else "xla"
+    if v == "xla":
+        return "xla"
+    if v in KERNEL_NAMES:
+        if dev.type != "cuda":
+            raise ValueError(
+                f"{key}: {v!r} selects a CUDA kernel, but the device is "
+                f"{dev}; use 'auto' or 'xla' on the CPU"
+            )
+        return "cuda"
+    raise ValueError(f"{key}: unknown backend {v!r}")
+
+
+def load_config(path):
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def reads_to_pattern(reads):
+    """Flattened READS pair list -> MA read pattern (list of lists).
+
+    ``[0,1, 1,2, 2,4]`` -> ``[[0], [1], [2, 3]]``; dropped frames are
+    allowed (a pair's end below the next pair's start).
+    """
+    if len(reads) % 2 != 0:
+        raise ValueError("READS must have an even number of entries")
+    pattern = []
+    for j in range(len(reads) // 2):
+        lo, hi = int(reads[2 * j]), int(reads[2 * j + 1])
+        if hi <= lo:
+            raise ValueError(f"READS pair ({lo},{hi}) is empty")
+        pattern.append(list(range(lo, hi)))
+    return pattern
+
+
+def pattern_to_reads(read_pattern):
+    """Inverse of :func:`reads_to_pattern` (for provenance output)."""
+    out = []
+    for g in read_pattern:
+        out.extend([int(g[0]), int(g[-1]) + 1])
+    return out
+
+
+def layer_subscript(cmd, ch):
+    """Subscript of a capital-letter directive in a noise-layer command.
+
+    ``layer_subscript('RS2Pg4', 'S') -> '2'``;
+    ``layer_subscript('RS2Pg4', 'P') -> 'g4'``.
+    Reference: ``gen_noise_image._get_subscript:33-57``.
+    """
+    return re.split(r"(?=[A-Z])", cmd.split(ch)[-1])[0]

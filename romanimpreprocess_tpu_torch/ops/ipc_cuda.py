@@ -1,0 +1,100 @@
+"""Hand-written CUDA kernel for the order-2 IPC inverse on the frame.
+
+Replaces the TPU kernel ``ops/ipc_pallas.py`` ``ipc_rev2_frame_stream``
+of the JAX package, and with it the JAX package's two slab variants
+(``IPC_BACKEND`` 'pallas' and 'pallas-stream'), which compute the same
+inverse.  The kernel (``csrc/ipc_frame.cu``) reads the raw
+(ngrp, nside, nside) cube, the nine border-zeroed kernel planes of
+:func:`kernel_planes_frame` and the gain once, and writes
+
+    out = (3 y - 3 K y + K K y) / gain,   y = data * gain
+
+(as the Neumann recursion ``o <- (o + y) - K o`` from ``o = y``) on
+the active region and the input unchanged on the border.  Its plain
+twin is :func:`ipc_rev2_frame_plain` (the CPU path and ``IPC_BACKEND:
+xla``), with which it agrees bit for bit: the kernel repeats the twin's
+rounded steps in the same order.
+
+Bound: bytes, about 1.48 GB at 4096^2 x 6 groups (:func:`bytes_moved`).
+"""
+
+import numpy as np
+import torch
+
+from ..utils import hostcache
+from . import cuda_build, ipc
+
+#: launches of the CUDA kernel since the last reset (set it to 0 to reset)
+launches = 0
+
+# each 4096^2 plane stack is 0.6 GB of host RAM: hold at most two
+_PLANES_CACHE = hostcache.BoundedCache(2)
+
+
+def kernel_planes_frame(kernel, nside, nborder=4):
+    """Host-side (9, nside, nside) float32 kernel planes, border ZERO.
+
+    ``kernel`` is the (3, 3, na, na) active-region IPC kernel; plane
+    ``3 * (1 + dy) + (1 + dx)`` holds ``kernel[1 + dy, 1 + dx]``.  The
+    zero border is the zero-fill edge of the reference stencil: a tap
+    that sources a border pixel multiplies a zero weight.  Cached per
+    cal pack (id-keyed; the value holds a strong reference to
+    ``kernel`` so a recycled id cannot alias it).
+    """
+    na = kernel.shape[-1]
+    ck = (id(kernel), nside, nborder)
+    hit = _PLANES_CACHE.get(ck)
+    if hit is not None:
+        return hit[0]
+    kp = np.zeros((9, nside, nside), np.float32)
+    kp[:, nborder : nborder + na, nborder : nborder + na] = np.asarray(
+        kernel, np.float32
+    ).reshape(9, na, na)
+    return _PLANES_CACHE.put(ck, (kp, kernel))[0]
+
+
+def bytes_moved(ngrp, nside):
+    """Least bytes the function must move: the cube, 9 planes and the
+    gain read once, the cube written once."""
+    return 4 * nside * nside * (2 * ngrp + 9 + 1)
+
+
+def ipc_rev2_frame_plain(data, planes, gain, nborder=4):
+    """Plain PyTorch version of the frame kernel (same inputs/outputs):
+    :func:`.ipc.ipc_rev` on the whole frame, the planes viewed as the
+    (3, 3, nside, nside) kernel, border passed through."""
+    nb = nborder
+    nside = data.shape[-1]
+    res = ipc.ipc_rev(data, planes.view(3, 3, nside, nside), order=2, gain=gain)
+    act = torch.zeros((nside, nside), dtype=torch.bool, device=data.device)
+    act[nb : nside - nb, nb : nside - nb] = True
+    return torch.where(act, res, data)
+
+
+def ipc_rev2_frame(data, planes, gain, nborder=4):
+    """Order-2 IPC inverse on the raw (ngrp, nside, nside) float32 cube,
+    border passthrough.  ``planes`` is the (9, nside, nside) output of
+    :func:`kernel_planes_frame`; ``gain`` is (nside, nside).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if data.device.type == "cpu":
+        return ipc_rev2_frame_plain(data, planes, gain, nborder)
+    global launches
+    ngrp, nside, _ = data.shape
+    if nborder < 0 or 2 * nborder > nside:
+        raise ValueError(f"nborder {nborder} does not fit nside {nside}")
+    req = cuda_build.require
+    req(data, "data", torch.float32, (ngrp, nside, nside))
+    req(planes, "planes", torch.float32, (9, nside, nside))
+    req(gain, "gain", torch.float32, (nside, nside))
+    out = torch.empty_like(data)
+    lib = cuda_build.library("ipc_frame.cu")
+    with torch.cuda.device(data.device):
+        err = lib.ipc_rev2_frame_launch(
+            data.data_ptr(), planes.data_ptr(), gain.data_ptr(),
+            out.data_ptr(), ngrp, nside, nborder,
+            cuda_build.stream_ptr(data),
+        )
+    cuda_build.check(err, "ipc_rev2_frame_launch")
+    launches += 1
+    return out

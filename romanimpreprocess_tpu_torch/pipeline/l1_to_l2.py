@@ -1,0 +1,831 @@
+"""L1 -> L2 calibration: the ``gen_cal_image`` equivalent, in PyTorch.
+
+Re-implements the full calibration chain of the reference pipeline
+(``src/romanimpreprocess/L1_to_L2/gen_cal_image.py:480-739``) as one
+device function over tensors plus a thin host wrapper:
+
+device core (the cube never leaves the device):
+  dq init -> saturation flagging -> per-group reference-pixel
+  correction (row + channel, amp33 optimal slope) -> bias correction ->
+  dark-decay / WFI18-transient corrections -> Legendre linearity ->
+  IPC deconvolution -> ramp fit + jump detection -> dark-current
+  subtraction -> flat field / pixel area -> sky mode + optional
+  Legendre sky subtraction -> endslice map.
+
+host wrapper: YAML config, L1 ASDF read, CALDIR load (once), WCS
+sidecar -> pixel-area map, plan precomputation, staging onto the
+device, L2 ASDF/FITS write, process log.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(:func:`..config.resolve_device`).  The ``IPC_BACKEND``,
+``LIN_BACKEND`` and ``SKY_BACKEND`` keys choose between the
+hand-written CUDA kernels and their plain PyTorch versions
+(:func:`..config.resolve_backend`).  DQ planes are int32 bit patterns
+on the device and uint32 numpy arrays in the L2 tree.
+"""
+
+import argparse
+import os
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from .. import pars
+from ..config import load_config, resolve_backend, resolve_device
+from ..dqflags import group as gdq
+from ..dqflags import i32, pixel
+from ..io import asdf_lite, calfiles, fits_lite
+from ..ops import (ipc, ipc_cuda, linearity, linearity_cuda, mask, ramp,
+                   refsub, saturation, sky, wcsutils)
+from ..ops.sky import full_fp32
+from ..utils import hostcache, typefix
+from ..utils.processlog import ProcessLog
+from . import oututils
+
+
+# --------------------------------------------------------------------------
+# Device core
+# --------------------------------------------------------------------------
+
+def _refpix_correct(data, dark_cube, amp33, amp33_med, opt_slope,
+                    nside, nborder, channelwidth, use_amp33):
+    """Per-group reference-pixel correction (reference
+    ``gen_cal_image.py:531-556``): dark-subtracted frame (+ amp33
+    reference block), row subtraction with the optimal amp33 slope,
+    then channel subtraction; dark re-added afterwards.  All groups at
+    once (the :mod:`..ops.refsub` helpers take a leading group axis).
+    """
+    nb = nborder
+    ngrp = data.shape[0]
+    work = data - dark_cube
+    # ---- row stage (reference_subtraction.py:77-125) ----
+    if use_amp33:
+        blk = amp33 - amp33_med
+        blk = blk - refsub.median(blk.reshape(ngrp, -1), dim=-1)[:, None, None]
+        ref_med = refsub.median(blk, dim=-1)  # (ngrp, nside)
+        ctr = refsub.median(ref_med, dim=-1)[:, None]
+        work = work - (opt_slope * (ref_med - ctr))[..., None]
+    else:
+        work = refsub.ref_subtraction_row(work, nside=nside, nborder=nb)
+    # ---- channel stage (reference_subtraction.py:16-74) ----
+    work = refsub.ref_subtraction_channel(
+        work, nside=nside, nborder=nb, channelwidth=channelwidth
+    )
+    return work + dark_cube
+
+
+def _dark_decay_signal(read_pattern, frame_time, amplitude, time_constant):
+    """Per-resultant additive decay signal s_j = A * mean_r exp(-t_r/tau)
+    (host numpy; the sim stage injects the identical model)."""
+    out = []
+    for grp in read_pattern:
+        ts = np.array(grp, dtype=np.float64) * frame_time
+        out.append(amplitude * np.mean(np.exp(-ts / time_constant)))
+    return np.asarray(out, dtype=np.float32)
+
+
+#: Default core output set = exactly what the L2 product consumes
+#: (``package_tree``).  The full group DQ ``rdq`` and the applied
+#: ``flat`` map are diagnostics the product never carries; request them
+#: with ``cfg["outputs"] = (..., "rdq", "flat")``.
+PRODUCT_OUTPUTS = (
+    "slope", "slope_withsky", "slope_err_read", "slope_err_poisson",
+    "pdq", "medsky", "skycoefs", "endslice",
+)
+
+WFI18_DEFAULT_TAUS = (150.0, 1300.0)
+
+
+def _wfi18_row_basis(nside, taus=WFI18_DEFAULT_TAUS):
+    """Two-exponential row basis (nside, len(taus)) for the first-read
+    transient; the row coordinate includes the 4-row timing gap every
+    256 rows."""
+    rows = np.arange(nside, dtype=np.float64)
+    reff = rows + (rows // 256) * 4
+    basis = np.stack([np.exp(-reff / t) for t in taus], axis=1)
+    return basis.astype(np.float32)
+
+
+def _correct_wfi18(data, basis, nside, nborder):
+    """Fit & subtract the exponential row profile from the first read.
+
+    Row medians of (read0 - read1) isolate the transient; least squares
+    on the fixed-tau ``basis`` gives the amplitudes; the fitted profile
+    is removed from read 0.  Returns a new cube.
+    """
+    nb = nborder
+    prof = refsub.median(
+        data[0, :, nb : nside - nb] - data[1, :, nb : nside - nb], dim=-1
+    )
+    prof = prof - refsub.median(prof)
+    with full_fp32():
+        BtB = basis.T @ basis
+        coef = torch.linalg.solve(BtB, basis.T @ prof)
+        model = basis @ coef
+    out = data.clone()
+    out[0] -= model[:, None]
+    return out
+
+
+def _add_active(x, y, nb):
+    """A copy of the 2-D ``x`` with ``y`` added on its active region."""
+    out = x.clone()
+    out[nb : x.shape[-2] - nb, nb : x.shape[-1] - nb] += y
+    return out
+
+
+class _Stages:
+    """Labels the core's stages as ``l1_to_l2.<stage>`` ranges for
+    ``torch.profiler`` (a few microseconds each when no profiler runs):
+    ``stage(name)`` ends the open range and opens the next."""
+
+    def __init__(self):
+        self._open = None
+
+    def __call__(self, name):
+        self.close()
+        self._open = torch.profiler.record_function(f"l1_to_l2.{name}")
+        self._open.__enter__()
+
+    def close(self):
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+
+
+def make_core(plan, cfg, geom):
+    """Build the calibration core for one (MA table, config).
+
+    ``cfg`` is the dict of static choices from :func:`prepare_inputs`;
+    ``geom`` = (nside, nborder, channelwidth).  Returns a function from
+    the device array bundle to a dict of device tensors.
+    """
+    nside, nborder, channelwidth = geom
+    nb = nborder
+    act = (slice(nb, nside - nb), slice(nb, nside - nb))
+    # diagnostic stage ablation: names in cfg["ablate"] are skipped
+    ab = cfg.get("ablate", ())
+    has_ipc = cfg["has_ipc"] and "ipc" not in ab
+
+    def core(arr):
+        data = arr["data"]  # (ngrp, N, N) float32, not modified
+        dev = data.device
+        ngrp = data.shape[0]
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+        # ---- dq initialization (romancal do_dqinit analog) ----
+        stage = _Stages()
+        stage("saturation")
+        pdq = arr["mask_dq"]
+        rdq = torch.zeros(data.shape, dtype=torch.int32, device=dev)
+        if cfg["exclude_first"]:
+            rdq[0] |= i32(gdq.DO_NOT_USE)
+
+        # ---- saturation ----
+        if "saturation" not in ab:
+            rdq, pdq = saturation.flag_saturation(
+                data, rdq, pdq, arr["saturation"], arr["saturation_dq"],
+                backup=cfg["backup"], skip_first=1, n_pix_grow_sat=1,
+            )
+
+        # ---- reference pixel correction ----
+        stage("refpix")
+        if "refpix" not in ab:
+            data = _refpix_correct(
+                data, arr["dark_cube"], arr["amp33"], arr["amp33_med"],
+                arr["opt_slope"], nside, nborder, channelwidth,
+                cfg["use_amp33"],
+            )
+
+        # ---- bias correction ----
+        stage("bias_decay_wfi18")
+        if cfg["has_biascorr"]:
+            data = data.clone()
+            data[:, act[0], act[1]] -= arr["biascorr"]
+
+        # ---- dark decay ----
+        if cfg["has_dark_decay"]:
+            data = data - arr["dark_decay_signal"][:, None, None]
+
+        # ---- WFI18 transient ----
+        if cfg["wfi18"]:
+            data = _correct_wfi18(data, arr["wfi18_basis"], nside, nborder)
+
+        # ---- linearity ----
+        stage("linearity")
+        if "linearity" not in ab:
+            lin = linearity.LinearityData(
+                arr["lin_coefs"], arr["lin_smin"], arr["lin_smax"],
+                arr["lin_sref"], arr["lin_dq"],
+            )
+            attempt = (rdq & i32(gdq.SATURATED)) == 0
+            if cfg["lin"] == "cuda":
+                data, dq_lin = linearity_cuda.apply_linearity_cube_fused(
+                    data.contiguous(), lin, attempt,
+                    do_not_flag_first=cfg["first_is_reset"],
+                )
+            else:
+                data, dq_lin = linearity.apply_linearity_cube(
+                    data, lin, do_not_flag_first=cfg["first_is_reset"],
+                    attempt_corr=attempt,
+                )
+            pdq = pdq | dq_lin
+
+        # ---- IPC deconvolution ----
+        stage("ipc")
+        # order-2 inverse on the raw frame, border passthrough; the
+        # dark-slope and clipped-flat deconvolutions are cal-only work,
+        # precomputed once per cal pack (ipc_precal)
+        if has_ipc:
+            ipc_fn = (ipc_cuda.ipc_rev2_frame if cfg["ipc"] == "cuda"
+                      else ipc_cuda.ipc_rev2_frame_plain)
+            data = ipc_fn(data.contiguous(), arr["ipc_kernel_frame"],
+                          arr["gain"], nborder=nb)
+
+        # ---- ramp fit + jump detection ----
+        stage("ramp_fit")
+        slope, ser, sep, rdq, pdq = ramp.ramp_fit(
+            data, rdq, pdq, plan, arr["gain"], arr["read_sigma"],
+            nborder=nborder,
+        )
+
+        # ---- dark current subtraction (IPC-corrected dark slope) ----
+        stage("dark_flat")
+        if has_ipc:
+            slope = _add_active(slope, -arr["dark_slope_ipc"], nb)
+        else:
+            slope = _add_active(slope, -arr["dark_slope"][act], nb)
+        if cfg["has_dark_dq"]:
+            pdq = pdq | arr["dark_dq"]
+
+        # zero the border of the science/variance maps (reference
+        # do_ramp_fit re-embedding, gen_cal_image.py:470-475)
+        interior = ramp.interior_mask(nside, nside, nb, dev)
+        fzero = torch.zeros((), dtype=torch.float32, device=dev)
+        slope = torch.where(interior, slope, fzero)
+        ser = torch.where(interior, ser, fzero)
+        sep = torch.where(interior, sep, fzero)
+
+        # ---- flat field (reference flatutils.get_flat + area factor) ----
+        flat = torch.ones((nside, nside), dtype=torch.float32, device=dev)
+        flat[act] = arr["flat"][act]
+        pdq = pdq | torch.where((flat < 0.1) | (flat > 10.0),
+                                i32(pixel.NO_FLAT_FIELD), zero)
+        flat = torch.clamp(flat, 0.1, 10.0)
+        if has_ipc:
+            no_gain = torch.zeros((nside, nside), dtype=torch.bool, device=dev)
+            no_gain[act] = arr["gain"][act] <= 0.1
+            pdq = pdq | torch.where(no_gain, i32(pixel.NO_GAIN_VALUE), zero)
+            flat[act] = arr["flat_ipc"]
+        flat = flat / arr["area_factor"]
+        slope = slope / flat
+        ser = ser / flat
+        sep = sep / flat
+
+        # ---- sky ----
+        stage("sky_mode")
+        slope_withsky = slope
+        if "sky" not in ab and "smooth" not in ab:
+            m = mask.PixelMask1.build(pdq)
+            nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+            medsky, _ = sky.smooth_mode(
+                sky.binkxk(torch.where(~m, slope, nan), 4)
+            )
+        else:
+            medsky = torch.zeros((), dtype=torch.float32, device=dev)
+        stage("sky_fit")
+        if cfg["skyorder"] >= 0 and "sky" not in ab and "medfit" not in ab:
+            skycoefs, skymodel = sky.medfit(
+                slope[act], order=cfg["skyorder"], backend=cfg["med"],
+            )
+            slope = _add_active(slope, -skymodel, nb)
+        else:
+            skycoefs = torch.zeros(0, dtype=torch.float32, device=dev)
+
+        # ---- endslice (SLICEOUT) ----
+        stage("endslice")
+        firstsat = ramp.first_saturated_group(rdq)[act]
+        endslice = torch.where(
+            firstsat < ngrp, firstsat - 1, torch.full_like(firstsat, -1)
+        ).to(torch.int8)
+
+        out = {
+            "slope": slope,
+            "slope_withsky": slope_withsky,
+            "slope_err_read": ser,
+            "slope_err_poisson": sep,
+            "pdq": pdq,
+            "rdq": rdq,
+            "flat": flat,
+            "medsky": medsky,
+            "skycoefs": skycoefs,
+            "endslice": endslice,
+        }
+        stage.close()
+        keys = cfg.get("outputs") or PRODUCT_OUTPUTS
+        return {k: out[k] for k in keys}
+
+    return core
+
+
+#: DQ outputs: int32 bit patterns on the device, uint32 on the host
+_DQ_OUTPUTS = ("pdq", "rdq")
+
+
+def to_host(out):
+    """Core outputs -> numpy (DQ planes as uint32)."""
+    host = {}
+    for k, v in out.items():
+        a = v.detach().cpu().numpy()
+        host[k] = a.view(np.uint32) if k in _DQ_OUTPUTS else a
+    return host
+
+
+# --------------------------------------------------------------------------
+# Host side
+# --------------------------------------------------------------------------
+
+# device copies of cal-pack arrays, keyed by (id, device); the value
+# holds the numpy array so a recycled id cannot alias a stale entry
+_DEVICE_CACHE = hostcache.BoundedCache(64)
+
+
+def stage(a, device, cache=True):
+    """A host numpy array as a tensor on ``device`` (uint32 DQ arrays
+    become int32 bit patterns, uint16 counts become int32).  Cal-pack
+    arrays are staged once per device (``cache``)."""
+    ck = (id(a), str(device))
+    if cache:
+        hit = _DEVICE_CACHE.get(ck)
+        if hit is not None:
+            return hit[0]
+    arr = np.asarray(a)
+    with warnings.catch_warnings():
+        # arrays read from ASDF are read-only; nothing writes to a staged
+        # tensor, so the buffer is shared rather than copied
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        if arr.dtype == np.uint32:
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32))
+        elif arr.dtype == np.uint16:
+            # 2 bytes per value over the bus; widened on the device
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+            t = t.to(device).to(torch.int32) & 0xFFFF
+        elif arr.dtype == np.float32:
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    t = t.to(device)
+    if cache:
+        _DEVICE_CACHE.put(ck, (t, a))
+    return t
+
+
+# cap 25 > the 18-SCA focal plane so per-SCA cal packs stay resident
+_IPC_PRECAL_CACHE = hostcache.BoundedCache(25)
+
+
+def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
+    """IPC-deconvolved dark-slope and clipped-flat planes.
+
+    The dark-slope and flat frames go through the same order-2 IPC
+    inverse as the data cube (reference ``subtract_dark_current``
+    IPC-corrects the dark ref first, ``gen_cal_image.py:217-221``;
+    ``get_flat`` deconvolves the flat, ``flatutils.py:61-74``).  Both
+    are exposure-independent, so they are computed once per cal pack
+    and device (id-keyed cache) with :func:`..ops.ipc.ipc_rev`.
+
+    Returns ``(dark_slope_ipc, flat_ipc)``, active-region (na, na)
+    float32 tensors on ``device``: unclipped gain for the dark slope,
+    gain clipped to >= 0.1 for the flat.
+    """
+    nb = nborder
+    device = torch.device(device)
+    ck = (id(flat), id(dark_slope), id(gain), id(ipc_kernel), nb, str(device))
+    hit = _IPC_PRECAL_CACHE.get(ck)
+    if hit is not None:
+        return hit[0]
+    gain_act = np.asarray(gain[nb:-nb, nb:-nb], np.float32)
+    gain_flat = np.clip(gain_act, 0.1, None)
+    flat_clipped = np.clip(
+        np.asarray(flat[nb:-nb, nb:-nb], np.float32), 0.1, 10.0
+    )
+    dslope_act = np.asarray(dark_slope[nb:-nb, nb:-nb], np.float32)
+    stacked = np.stack([dslope_act * gain_act, flat_clipped * gain_flat])
+    corr = ipc.ipc_rev(torch.from_numpy(stacked).to(device),
+                       stage(ipc_kernel, device))
+    out = (corr[0] / torch.from_numpy(gain_act).to(device),
+           corr[1] / torch.from_numpy(gain_flat).to(device))
+    return _IPC_PRECAL_CACHE.put(
+        ck, (out, (flat, dark_slope, gain, ipc_kernel))
+    )[0]
+
+
+_WCS_CACHE = hostcache.BoundedCache(65)
+
+
+def wcs_from_config(config):
+    """FITS-header WCS from the FITSWCS sidecar (reference
+    ``gen_cal_image.py:64-87``), memoized by (path, mtime)."""
+    if "FITSWCS" not in config:
+        return None
+    path = config["FITSWCS"]
+    mt = os.path.getmtime(path)
+    hit = _WCS_CACHE.get(path)
+    if hit is not None and hit[0] == mt:
+        return hit[1]
+    with open(path) as f:
+        hdr = fits_lite.Header.fromstring(f.read())
+    return _WCS_CACHE.put(path, (mt, hdr))[1]
+
+
+def calibrateimage(config, verbose=False, return_arrays=False, device=None):
+    """Run the L1->L2 calibration per the config dict; write the L2 ASDF.
+
+    Config keys follow the reference (``docs/L1_to_L2_README.rst``):
+    IN, OUT, CALDIR, FITSWCS, RAMP_OPT_PARS, JUMP_DETECT_PARS, SKYORDER,
+    EXCLUDE_FIRST, SATURATION_BACKUP, SLICEOUT, FITSOUT,
+    correct_wfi18_transient, and the ``*_BACKEND`` kernel choices.
+    Runs on ``device`` (default ``cuda``; raises without a GPU).
+    """
+    device = resolve_device(device)
+    pack = calfiles.load_caldir_cached(config["CALDIR"])
+    l1 = asdf_lite.open(config["IN"])["roman"]
+    area_factor = area_factor_from_config(config, pack.nside)
+    tree, out = calibrate_tree(l1, config, pack, area_factor, device=device)
+    typefix.fix(tree)  # schema-compat dummy fields (reference writes them)
+    asdf_lite.AsdfFile(tree).write_to(config["OUT"])
+
+    if config.get("FITSOUT", False):
+        im2 = tree["roman"]
+        good = ~mask.PixelMask1.build(im2["dq"]).numpy()
+        fits_lite.HDUList(
+            [
+                fits_lite.PrimaryHDU(im2["data"]),
+                fits_lite.ImageHDU(im2["dq"]),
+                fits_lite.ImageHDU(np.where(good, im2["data"], -1000.0)),
+            ]
+        ).writeto(config["OUT"][:-5] + "_asdf_to.fits", overwrite=True)
+
+    if verbose:
+        print(tree["processinfo"]["log"])
+    if return_arrays:
+        return out
+    return None
+
+
+def area_factor_from_config(config, nside):
+    """FITSWCS sidecar -> pixel-area / Omega_ideal map (unit if absent)."""
+    thewcs = wcs_from_config(config)
+    if thewcs is None:
+        return np.ones((nside, nside), dtype=np.float32)
+    w = wcsutils.SIPWCS.from_header(thewcs, zero_based=True)
+    return (wcsutils.pixelarea(w, N=nside) / pars.Omega_ideal).astype(np.float32)
+
+
+def calibrate_tree(l1, config, pack, area_factor=None, verbose=False,
+                   device=None):
+    """Calibrate an in-memory L1 tree; return (L2 tree, core outputs as
+    numpy)."""
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    prep = prepare_inputs(l1, config, pack, area_factor, device=device)
+    t1 = time.perf_counter()
+    core = make_core(prep["plan"], prep["cfg"], prep["geom"])
+    out = to_host(core(prep["arr"]))
+    t2 = time.perf_counter()
+    prep = dict(
+        prep,
+        log=prep["log"]
+        + f"Timing: host prepare {1e3 * (t1 - t0):.1f} ms; "
+        f"core device+transfer {1e3 * (t2 - t1):.1f} ms on {device}\n",
+    )
+    tree = package_tree(out, prep, l1, config)
+    if verbose:
+        print(tree["processinfo"]["log"])
+    return tree, out
+
+
+def _guide_window_rows(l1meta, config, nside, expand=1):
+    """Boolean (nside,) mask of rows affected by the guide-window read
+    (romancal ``do_dqinit`` with ``expand_gw_flagging=1``), from
+    ``config["GUIDE_WINDOW"] = [ystart, ystop)`` or the L1 meta
+    ``guide_star.gw_window_ystart / gw_window_ystop``; None when absent.
+    """
+    bounds = config.get("GUIDE_WINDOW")
+    if bounds is None:
+        gs = l1meta.get("guide_star")
+        if gs is None or "gw_window_ystart" not in gs:
+            return None
+        bounds = (gs["gw_window_ystart"], gs["gw_window_ystop"])
+    y0, y1 = int(bounds[0]), int(bounds[1])
+    rows = np.zeros(nside, dtype=bool)
+    rows[max(y0 - expand, 0):min(y1 + expand, nside)] = True
+    return rows
+
+
+def prepare_inputs(l1, config, pack, area_factor=None, device=None):
+    """Host-side preparation: plan, static cfg, and the array bundle for
+    one SCA, staged onto ``device`` (default ``cuda``).  Returns a dict;
+    ``arr`` holds tensors, cal-pack arrays staged once per device."""
+    device = resolve_device(device)
+    mylog = ProcessLog()
+    caldir = config["CALDIR"]
+    nside = pack.nside
+    nborder = pars.nborder
+    nb = nborder
+    if area_factor is None:
+        area_factor = np.ones((nside, nside), dtype=np.float32)
+
+    l1meta = l1["meta"]
+    data = np.asarray(l1["data"])
+    ngrp = data.shape[0]
+    read_pattern = [list(g) for g in l1meta["exposure"]["read_pattern"]]
+    frame_time = float(l1meta["exposure"].get("frame_time", pars.read_time))
+    detector = str(l1meta.get("instrument", {}).get("detector", "WFI00"))
+    channelwidth = (
+        np.asarray(l1["amp33"]).shape[-1] if "amp33" in l1
+        else max(nside // 32, 4)
+    )
+    mylog.append("Initialized data\n")
+
+    meta = ramp.ma_table_meta(read_pattern, frame_time)
+    meta["nborder"] = nborder
+
+    exclude_first = bool(config.get("EXCLUDE_FIRST", True))
+    backup = int(config.get("SATURATION_BACKUP", 1))
+
+    # ---- guide-window DQ flagging (host side; per-exposure metadata) ----
+    mask_dq = (
+        pack.mask_dq if pack.mask_dq is not None
+        else np.zeros((nside, nside), np.uint32)
+    )
+    gw_rows = _guide_window_rows(l1meta, config, nside)
+    if gw_rows is not None:
+        mask_dq = mask_dq.copy()
+        mask_dq[gw_rows] |= np.uint32(pixel.GW_AFFECTED_DATA)
+        mylog.append(
+            f"Guide window: flagged {int(gw_rows.sum())} rows "
+            "GW_AFFECTED_DATA\n"
+        )
+
+    uopt = config.get(
+        "RAMP_OPT_PARS", {"slope": 0.4, "gain": 1.8, "sigma_read": 6.5}
+    )
+    u_ = float(uopt["slope"]) / float(uopt["gain"]) / float(uopt["sigma_read"]) ** 2
+    if config.get("romancal_ramp_fit", False):
+        raise NotImplementedError(
+            "romancal_ramp_fit (the likelihood fitter, ops/likely) is not "
+            "ported yet: see ROADMAP.md, Queue 1"
+        )
+    plan = ramp.build_plan(
+        meta, u_, exclude_first, config.get("JUMP_DETECT_PARS")
+    )
+    mylog.append(f"\n\nRamp fit optimized for u = {u_:11.5E} s**-1\n")
+    mylog.append("weights = {}\n".format(plan.W[-1]))
+    weights_out = plan.W[-1]
+
+    # ---- static config ----
+    use_amp33 = pack.amp33_valid and "amp33" in l1
+    opt_slope = calfiles.amp33_optimal_slope(pack) if use_amp33 else None
+    wfi18 = bool(config.get("correct_wfi18_transient", False)) and (
+        detector == "WFI18" or detector in pack.wfi18_transient
+    )
+    if config.get("correct_wfi18_transient", False) and not wfi18:
+        mylog.append("Skipping WFI18 transient correction (not WFI18)\n")
+    wfi18_taus = tuple(
+        pack.wfi18_transient.get(detector, {}).get(
+            "taus", WFI18_DEFAULT_TAUS)
+    )
+    if wfi18:
+        mylog.append(
+            "WFI18 transient row basis taus = "
+            + ", ".join(f"{t:.1f}" for t in wfi18_taus) + " rows\n"
+        )
+    has_dark_decay = "dark_decay" in caldir
+    if has_dark_decay:
+        tab = pack.dark_decay[detector]
+        dd_signal = _dark_decay_signal(
+            read_pattern, frame_time, tab["amplitude"], tab["time_constant"]
+        )
+        mylog.append("Dark decay correction complete\n")
+    else:
+        dd_signal = np.zeros(ngrp, dtype=np.float32)
+
+    cfg = dict(
+        exclude_first=exclude_first,
+        backup=backup,
+        use_amp33=bool(use_amp33),
+        has_biascorr="biascorr" in caldir,
+        has_dark_decay=has_dark_decay,
+        wfi18=wfi18,
+        first_is_reset=(read_pattern[0] == [0]),
+        has_ipc="ipc4d" in caldir,
+        # 'cuda' = the hand-written kernel, 'xla' = its plain version;
+        # 'auto' is the kernel on a CUDA device
+        ipc=resolve_backend(config, "IPC_BACKEND", device),
+        lin=resolve_backend(config, "LIN_BACKEND", device),
+        med=resolve_backend(config, "SKY_BACKEND", device),
+        has_dark_dq=pack.dark_dq is not None,
+        skyorder=int(config.get("SKYORDER", -1)),
+    )
+
+    # trailing alignment: dark files may carry extra LEADING slices (a
+    # reference read the exposure dropped under EXTRACT_REF)
+    de = pack.dark_cube.shape[0] - ngrp
+    if de < 0:
+        raise ValueError(
+            f"dark cube has {pack.dark_cube.shape[0]} groups but the "
+            f"exposure has {ngrp}"
+        )
+
+    def cal(a):  # cal-pack array, staged once per device
+        return stage(a, device)
+
+    def exp(a):  # per-exposure array
+        return stage(a, device, cache=False)
+
+    arr = {
+        "opt_slope": torch.tensor(
+            float(np.float32(opt_slope if opt_slope is not None else 0.0)),
+            dtype=torch.float32, device=device),
+        "data": exp(data).to(torch.float32),
+        "amp33": (
+            exp(l1["amp33"]).to(torch.float32) if "amp33" in l1
+            else torch.zeros((ngrp, nside, channelwidth), dtype=torch.float32,
+                             device=device)
+        ),
+        "amp33_med": (
+            cal(pack.amp33_med) if pack.amp33_med is not None
+            else torch.zeros((nside, channelwidth), dtype=torch.float32,
+                             device=device)
+        ),
+        "dark_cube": cal(pack.dark_cube)[de:],
+        "dark_slope": cal(pack.dark_slope),
+        "dark_dq": (
+            cal(pack.dark_dq) if pack.dark_dq is not None
+            else torch.zeros((nside, nside), dtype=torch.int32, device=device)
+        ),
+        "gain": cal(pack.gain),
+        "read_sigma": cal(pack.read_sigma),
+        "mask_dq": cal(mask_dq) if gw_rows is None else exp(mask_dq),
+        "saturation": cal(pack.saturation),
+        "saturation_dq": (
+            cal(pack.saturation_dq) if pack.saturation_dq is not None
+            else torch.zeros((nside, nside), dtype=torch.int32, device=device)
+        ),
+        "biascorr": (
+            cal(pack.biascorr)[pack.biascorr.shape[0] - ngrp:]
+            if pack.biascorr is not None
+            else torch.zeros((ngrp, nside - 2 * nb, nside - 2 * nb),
+                             dtype=torch.float32, device=device)
+        ),
+        "lin_coefs": cal(pack.lin_coefs),
+        "lin_smin": cal(pack.lin_smin),
+        "lin_smax": cal(pack.lin_smax),
+        "lin_sref": cal(pack.lin_sref),
+        "lin_dq": cal(pack.lin_dq),
+        "flat": cal(pack.flat),
+        "area_factor": exp(area_factor),
+        "dark_decay_signal": exp(dd_signal),
+        "wfi18_basis": exp(_wfi18_row_basis(nside, wfi18_taus)),
+    }
+    if cfg["has_ipc"]:
+        arr["dark_slope_ipc"], arr["flat_ipc"] = ipc_precal(
+            pack.flat, pack.dark_slope, pack.gain, pack.ipc_kernel, nb, device
+        )
+        arr["ipc_kernel_frame"] = cal(
+            ipc_cuda.kernel_planes_frame(pack.ipc_kernel, nside, nb)
+        )
+
+    mylog.append("Saturation check complete\n")
+    mylog.append("Linearity correction complete\n")
+    mylog.append("Dark current subtracted\n")
+    medgain = float(np.median(pack.gain))
+    mylog.append(f"median gain = {medgain:8.5f} e/DN\n")
+
+    return dict(
+        arr=arr, plan=plan, cfg=cfg, geom=(nside, nborder, int(channelwidth)),
+        meta=meta, read_pattern=read_pattern, frame_time=frame_time,
+        uopt=uopt, weights_out=weights_out, medgain=medgain,
+        has_dark_decay=has_dark_decay, wfi18=wfi18,
+        exclude_first=exclude_first, log=mylog.output, device=device,
+    )
+
+
+def package_tree(out, prep, l1, config):
+    """Package the core's host outputs (:func:`to_host`) into the L2
+    ASDF tree."""
+    nside, nborder, _ = prep["geom"]
+    nb = nborder
+    ngrp = np.asarray(l1["data"]).shape[0]
+    l1meta = l1["meta"]
+    meta = prep["meta"]
+    medgain = prep["medgain"]
+    skyorder = prep["cfg"]["skyorder"]
+    has_dark_decay = prep["has_dark_decay"]
+    wfi18 = prep["wfi18"]
+
+    slope = out["slope"]
+    pdq = out["pdq"]
+    ser = out["slope_err_read"]
+    sep = out["slope_err_poisson"]
+
+    act = slice(nb, nside - nb)
+    err = np.hypot(ser, sep).astype(np.float32)
+
+    # the L2 product carries the WCS of the active-region science frame
+    # (0-based CRPIX, as sim_to_l1 writes the sidecar)
+    thewcs = wcs_from_config(config)
+    wcsinfo = None
+    if thewcs is not None:
+        w = wcsutils.SIPWCS.from_header(thewcs, zero_based=True)
+        wcsinfo = dict(
+            w.to_cards(),
+            pixel_convention="0-based, active region",
+            ra_ref=float(w.crval[0]),
+            dec_ref=float(w.crval[1]),
+        )
+
+    l2meta = {
+        "exposure": dict(l1meta["exposure"]),
+        "instrument": dict(l1meta.get("instrument", {})),
+        "cal_step": oututils.cal_step_status(
+            has_dark_decay, wfi18,
+            config.get("correct_wfi18_transient", False),
+            has_wcs=wcsinfo is not None,
+        ),
+        "gain": medgain,
+    }
+    if wcsinfo is not None:
+        l2meta["wcsinfo"] = wcsinfo
+        if "pointing" in l1meta:
+            l2meta["pointing"] = dict(l1meta["pointing"])
+    oututils.add_in_provenance(l2meta)
+
+    im2 = {
+        "meta": l2meta,
+        "data": np.asarray(slope[act, act], np.float32),
+        "dq": np.asarray(pdq[act, act], np.uint32),
+        "err": err[act, act],
+        "var_poisson": np.asarray(sep[act, act] ** 2, np.float32),
+        "var_rnoise": np.asarray(ser[act, act] ** 2, np.float32),
+        "var_flat": np.zeros((nside - 2 * nb, nside - 2 * nb), np.float16),
+        "data_withsky": np.asarray(out["slope_withsky"][act, act], np.float32),
+    }
+    oututils.add_in_ref_data(im2, l1, pdq, nside, nb)
+
+    processinfo = {
+        "medsky": float(out["medsky"]),
+        "medgain": medgain,
+        "skyorder": skyorder,
+        "skycoefs": np.asarray(out["skycoefs"], np.float32),
+        "ramp_opt_pars": prep["uopt"],
+        "reffiles": _jsonable(config.get("CALDIR", {})),
+        "meta": {
+            "ngrp": meta["ngrp"],
+            "N": meta["N"].astype(np.int16),
+            "tbar": meta["tbar"].astype(np.float32),
+            "tau": meta["tau"].astype(np.float32),
+            "frame_time": prep["frame_time"],
+            "read_pattern": prep["read_pattern"],
+            "nborder": nborder,
+        },
+        "weights": prep["weights_out"],
+        "config": _jsonable(config),
+        "log": prep["log"],
+        "exclude_first": prep["exclude_first"],
+    }
+    if config.get("SLICEOUT", False):
+        if ngrp >= 128:
+            raise ValueError("too many groups")
+        processinfo["endslice"] = np.asarray(out["endslice"], np.int8)
+
+    return {"roman": im2, "processinfo": processinfo}
+
+
+def _jsonable(obj):
+    """Deep-copy a config into plain YAML/ASDF-serializable types."""
+    if isinstance(obj, dict):
+        return {str(k): _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, (np.integer,)):
+        return int(obj)
+    if isinstance(obj, (np.floating,)):
+        return float(obj)
+    return obj
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="L1 -> L2 calibration of one SCA")
+    ap.add_argument("config", help="YAML config (IN, OUT, CALDIR, ...)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' for the plain path)")
+    args = ap.parse_args(argv)
+    calibrateimage(load_config(args.config), verbose=True, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

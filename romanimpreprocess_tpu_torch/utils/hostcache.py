@@ -1,0 +1,51 @@
+"""Bounded, thread-safe host-side caches.
+
+Several host paths memoize expensive per-cal-pack work: the IPC-precal
+planes and WCS sidecars (:mod:`..pipeline.l1_to_l2`), the border-zeroed
+IPC kernel planes (:mod:`..ops.ipc_cuda`), loaded CalPacks
+(:mod:`..io.calfiles`).  They share subtle requirements — safe to call
+from several threads, evict-oldest without
+clearing live entries, and (for id-keyed caches) strong references to
+the keyed objects held in the value so a GC'd array can't alias a
+recycled ``id``.  One implementation here so a concurrency fix can't
+miss a copy.
+"""
+
+import threading
+
+
+class BoundedCache:
+    """Insertion-ordered mapping with locked evict-oldest inserts.
+
+    ``get`` is lock-free (CPython dict reads are atomic); ``put``
+    evicts the oldest entries down to ``capacity`` under a lock (a
+    concurrent ``pop`` during ``next(iter(...))`` raises RuntimeError
+    otherwise) and returns the inserted value — callers must use that
+    return rather than re-reading the cache, which a concurrent
+    eviction may already have emptied.
+    """
+
+    def __init__(self, capacity):
+        self.capacity = int(capacity)
+        self._d = {}
+        self._lock = threading.Lock()
+
+    def get(self, key, default=None):
+        return self._d.get(key, default)
+
+    def put(self, key, value):
+        with self._lock:
+            while len(self._d) >= self.capacity:
+                try:
+                    self._d.pop(next(iter(self._d)), None)
+                except (StopIteration, RuntimeError):  # pragma: no cover
+                    break
+            self._d[key] = value
+        return value
+
+    def clear(self):
+        with self._lock:
+            self._d.clear()
+
+    def __len__(self):
+        return len(self._d)

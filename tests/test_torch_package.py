@@ -1,0 +1,219 @@
+"""The port as a package: imports without JAX, backends, devices, I/O.
+
+The JAX package is imported here only as the oracle for the host
+substrate the port keeps its own copies of (config codecs, CALDIR
+loading, synthetic calibration files).
+"""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import romanimpreprocess_tpu_torch
+from romanimpreprocess_tpu import benchlib as jbenchlib
+from romanimpreprocess_tpu import config as jconfig
+from romanimpreprocess_tpu.io import calfiles as jcalfiles
+from romanimpreprocess_tpu.synth import make_cal_files as jmake_cal_files
+from romanimpreprocess_tpu_torch import config, synth
+from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
+from romanimpreprocess_tpu_torch.ops import cuda_build
+from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "romanimpreprocess_tpu_torch"
+READ_PATTERN = synth.READ_PATTERN_DEFAULT
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        romanimpreprocess_tpu_torch.__path__, "romanimpreprocess_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    # a subprocess: this test process already imported jax (conftest)
+    code = (
+        "import importlib, sys\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'romanimpreprocess_tpu' or k.startswith('romanimpreprocess_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 25
+
+
+def test_no_port_file_names_jax_or_the_jax_package():
+    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 25
+    pat = re.compile(r"\bjax\b|\bromanimpreprocess_tpu\.")
+    for p in files:
+        for i, line in enumerate(p.read_text().splitlines(), 1):
+            assert not pat.search(line), f"{p.relative_to(ROOT)}:{i}: {line}"
+
+
+def test_nothing_is_built_at_import():
+    assert cuda_build._LIBS == {}
+    for src in cuda_build.SOURCES:
+        text = (cuda_build.CSRC / src).read_text()
+        assert 'extern "C" int' in text and "cudaGetLastError" in text, src
+    assert set(cuda_build.SOURCES) == {p.name for p in cuda_build.CSRC.glob("*.cu")}
+
+
+# --------------------------------------------------------------------------
+# devices and backends
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("value,dev,want", [
+    ("auto", "cpu", "xla"), ("AUTO", "cpu", "xla"), ("xla", "cpu", "xla"),
+    ("auto", "cuda", "cuda"), ("xla", "cuda", "xla"), ("cuda", "cuda", "cuda"),
+    ("pallas", "cuda", "cuda"), ("pallas-stream", "cuda", "cuda"),
+    ("pallas-frame", "cuda", "cuda"),
+])
+def test_resolve_backend(value, dev, want):
+    assert config.resolve_backend({"IPC_BACKEND": value}, "IPC_BACKEND", dev) == want
+
+
+@pytest.mark.parametrize("value", ["cuda", "pallas", "pallas-stream", "pallas-frame"])
+def test_kernel_backend_on_cpu_raises(value):
+    with pytest.raises(ValueError):
+        config.resolve_backend({"IPC_BACKEND": value}, "IPC_BACKEND", "cpu")
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError):
+        config.resolve_backend({"LIN_BACKEND": "triton"}, "LIN_BACKEND", "cpu")
+    assert config.resolve_backend({}, "SKY_BACKEND", "cpu") == "xla"
+
+
+def test_no_device_means_cuda_and_raises_without_one():
+    if torch.cuda.is_available():
+        assert config.resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        config.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        l1_to_l2.calibrateimage({"IN": "unused", "OUT": "unused", "CALDIR": {}})
+    assert config.resolve_device("cpu").type == "cpu"
+
+
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("torch_pkg"))
+    caldir = synth.make_cal_files(d + "/cal", READ_PATTERN, nside=64, seed=5)
+    cal = synth.synth_cal_arrays(64, READ_PATTERN, seed=5)
+    data = synth.synth_l1_cube(cal, READ_PATTERN, rate_dn_s=10.0, nborder=4)
+    synth.write_l1_file(d + "/L1.asdf", data, READ_PATTERN,
+                        amp33=synth.synth_amp33(64, len(READ_PATTERN), 4))
+    return d, caldir
+
+
+def test_cuda_backend_on_cpu_device_raises_in_prepare(small):
+    d, caldir = small
+    cfg = {"IN": d + "/L1.asdf", "OUT": d + "/x.asdf", "CALDIR": caldir,
+           "IPC_BACKEND": "cuda"}
+    with pytest.raises(ValueError, match="IPC_BACKEND"):
+        l1_to_l2.calibrateimage(cfg, device="cpu")
+
+
+def test_likelihood_fit_not_ported_yet(small):
+    d, caldir = small
+    l1 = asdf_lite.open(d + "/L1.asdf")["roman"]
+    pack = calfiles.load_caldir(caldir)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        l1_to_l2.prepare_inputs(l1, {"CALDIR": caldir, "romancal_ramp_fit": True},
+                                pack, device="cpu")
+
+
+def test_synthetic_l1_recovers_injected_rate(small):
+    d, caldir = small
+    cfg = {"IN": d + "/L1.asdf", "OUT": d + "/L2.asdf", "CALDIR": caldir,
+           "SKYORDER": 2, "SLICEOUT": True}
+    l1_to_l2.calibrateimage(cfg, device="cpu")
+    im = asdf_lite.open(cfg["OUT"])["roman"]
+    pack = calfiles.load_caldir(caldir)
+    rate = synth.injected_rate(64, 10.0, nborder=4, seed=7)[4:-4, 4:-4]
+    ratio = np.median(im["data_withsky"] * pack.flat[4:-4, 4:-4] / rate)
+    assert 0.97 < ratio < 1.03
+    assert im["meta"]["calibration_software_name"] == "romanimpreprocess_tpu_torch.l1_to_l2"
+
+
+def test_prepare_inputs_stages_on_device_and_caches(small):
+    d, caldir = small
+    l1 = asdf_lite.open(d + "/L1.asdf")["roman"]
+    pack = calfiles.load_caldir(caldir)
+    cfg = {"CALDIR": caldir}
+    a = l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")
+    b = l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")
+    assert a["cfg"]["ipc"] == a["cfg"]["lin"] == a["cfg"]["med"] == "xla"
+    assert a["arr"]["gain"] is b["arr"]["gain"]  # cal pack staged once
+    assert a["arr"]["dark_slope_ipc"] is b["arr"]["dark_slope_ipc"]
+    assert a["arr"]["data"].dtype == torch.float32
+    assert a["arr"]["mask_dq"].dtype == torch.int32
+    np.testing.assert_array_equal(a["arr"]["mask_dq"].numpy().view(np.uint32), pack.mask_dq)
+    np.testing.assert_array_equal(a["arr"]["data"].numpy(), np.asarray(l1["data"], np.float32))
+
+
+# --------------------------------------------------------------------------
+# host substrate against the JAX package's copies
+# --------------------------------------------------------------------------
+
+def test_read_pattern_codecs_match():
+    reads = [0, 1, 1, 3, 3, 6, 7, 9]
+    assert config.reads_to_pattern(reads) == jconfig.reads_to_pattern(reads)
+    pat = config.reads_to_pattern(reads)
+    assert config.pattern_to_reads(pat) == jconfig.pattern_to_reads(pat)
+    for cmd, ch in (("RS2Pg4", "S"), ("RS2Pg4", "P"), ("Rz4PbrS2C1", "C")):
+        assert config.layer_subscript(cmd, ch) == jconfig.layer_subscript(cmd, ch)
+
+
+def test_synth_files_and_caldir_load_identical(tmp_path):
+    ct = synth.make_cal_files(str(tmp_path / "t"), READ_PATTERN, nside=48, seed=3)
+    cj = jmake_cal_files(str(tmp_path / "j"), READ_PATTERN, nside=48, seed=3)
+    assert sorted(ct) == sorted(cj)
+    pt, pj = calfiles.load_caldir(ct), jcalfiles.load_caldir(cj)
+    for name, vj in vars(pj).items():
+        vt = getattr(pt, name)
+        if isinstance(vj, np.ndarray):
+            np.testing.assert_array_equal(vt, vj, err_msg=name)
+            assert vt.dtype == vj.dtype, name
+        elif not isinstance(vj, dict):
+            assert vt == vj, name
+    assert calfiles.amp33_optimal_slope(pt) == jcalfiles.amp33_optimal_slope(pj)
+
+
+def test_synth_arrays_match_benchlib():
+    at = synth.synth_cal_arrays(32, READ_PATTERN, seed=4)
+    aj = jbenchlib.synth_cal_arrays(32, READ_PATTERN, seed=4)
+    for k, v in aj.items():
+        np.testing.assert_array_equal(np.asarray(at[k]), np.asarray(v), err_msg=k)
+    np.testing.assert_array_equal(synth.synth_l1_cube(at, READ_PATTERN),
+                                  jbenchlib.synth_l1_cube(aj, READ_PATTERN))
+
+
+def test_write_l1_file_layout(tmp_path):
+    data = np.zeros((len(READ_PATTERN), 16, 16), np.uint16)
+    p = synth.write_l1_file(str(tmp_path / "L1.asdf"), data, READ_PATTERN,
+                            amp33=synth.synth_amp33(16, len(READ_PATTERN), 4))
+    r = asdf_lite.open(p)["roman"]
+    assert r["data"].dtype == np.uint16 and r["amp33"].shape == (6, 16, 4)
+    assert r["meta"]["exposure"]["read_pattern"] == READ_PATTERN
+    assert r["meta"]["instrument"]["detector"] == "WFI04"
+    with pytest.raises(ValueError):
+        synth.write_l1_file(str(tmp_path / "bad.asdf"), data.astype(np.float32),
+                            READ_PATTERN)
+    assert os.path.getsize(p) > data.nbytes

@@ -8,19 +8,29 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit; the kernels are built from
    ``romanimpreprocess_tpu_torch/csrc`` into ``build/torch_ext/``.
 2. kernels: each hand-written CUDA kernel (linearity, IPC frame inverse,
-   block nanmedian) against its plain PyTorch version on the card, at
-   the main path's shapes (4096^2 x 6 groups; the 4088^2 active frame
-   with N=8) and at small ragged shapes; CUDA-event medians of the
-   kernel, the plain version and, where one exists, a single PyTorch
-   call computing the same function; the least time the card could
-   take (bytes over the memory rate, operations over the f32 rate).
-3. main path: a synthetic 4096^2 CALDIR and 6-group L1 through
+   block nanmedian, forward IPC, pink-noise transform, read
+   contraction) against its plain PyTorch version on the card, at the
+   main paths' shapes (4096^2 x 6 groups; the 4088^2 active frame; 14
+   reads; 102 transforms of 2^20) and at small ragged shapes;
+   CUDA-event medians of the kernel, the plain version and, where one
+   exists, a single PyTorch call computing the same function; the least
+   time the card could take (bytes over the memory rate, operations
+   over the peak rate for their type).
+3. main path, L1 -> L2: a synthetic 4096^2 CALDIR and 6-group L1 through
    ``calibrateimage`` on ``cuda`` with every backend ``auto``
    (SKYORDER 2, SLICEOUT), kernel launch counts read around that run;
    the L2 checked (finite, DQ populated, injected rate recovered) and
    held against the plain path on the card (every backend ``xla``);
    the warm core timed with CUDA events, kernels and plain path in
    turns.
+4. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
+   through ``sim_to_l1.run_config`` on ``cuda`` (6 groups, 14 reads;
+   ``IPC_BACKEND``/``PINK_BACKEND`` ``auto``, ``CONTRACT_BACKEND:
+   pallas``), launch counts read around that run; the L1 file checked
+   and fed to ``calibrateimage`` (slope recovery, CR envelope and
+   recall); the same seed again with every backend ``xla``/``dot`` and
+   the two cubes held within 1 DN; the warm sim timed and profiled on
+   both paths.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -50,6 +60,8 @@ HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
             ("H100", 3.35e12))
 #: float32 rate outside the tensor cores (H100 SXM data sheet)
 F32_RATE = 67e12
+#: dense bfloat16 rate of the tensor cores (H100 SXM data sheet)
+BF16_RATE = 989e12
 
 
 class SmokeError(RuntimeError):
@@ -72,11 +84,11 @@ def hbm_rate(name):
     raise SmokeError(f"no memory rate known for {name!r}")
 
 
-def bound(nbytes, nops, name):
+def bound(nbytes, nops, name, ops_rate=F32_RATE):
     """(bound_ms, bound_by): the larger of bytes / memory rate and
-    operations / f32 rate."""
+    operations / the peak rate for their type."""
     t_bytes = nbytes / hbm_rate(name) * 1e3
-    t_ops = nops / F32_RATE * 1e3
+    t_ops = nops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -99,11 +111,17 @@ def cuda_ms(fn, runs=10, warmup=2):
     return statistics.median(times)
 
 
-def profile(fn, top=10):
+L2_KERNEL_NAMES = ("linearity_kernel", "ipc_rev2_frame_kernel",
+                   "block_nanmedian_kernel")
+SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_pass", "contract_kernel")
+
+
+def profile(fn, top=10, prefix="l1_to_l2", ours=L2_KERNEL_NAMES):
     """One warm call under torch.profiler: device time per stage of the
-    core (its ``l1_to_l2.*`` ranges) and per kernel name, the kernel
-    count, and the device's idle share of the span from the first
-    kernel's start to the last one's end."""
+    function (its ``<prefix>.*`` ranges; a range nested in another is
+    listed beside it) and per kernel name, the kernel count, and the
+    device's idle share of the span from the first kernel's start to
+    the last one's end."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -119,7 +137,7 @@ def profile(fn, top=10):
 
     # device events, less the stage ranges' own copies on the GPU timeline
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith("l1_to_l2.")]
+            and not e.name.startswith(prefix + ".")]
     if not kern:
         return {"wall_ms": wall_ms, "device_time": "not measured (no CUDA events)"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
@@ -142,10 +160,9 @@ def profile(fn, top=10):
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
 
     stages = {e.key.split(".", 1)[1]: dev_us(e) / 1e3 for e in prof.key_averages()
-              if e.key.startswith("l1_to_l2.")}
+              if e.key.startswith(prefix + ".")}
     ours = {name: sum(t for k, (t, _) in by_name.items() if name in k) / 1e3
-            for name in ("linearity_kernel", "ipc_rev2_frame_kernel",
-                         "block_nanmedian_kernel")}
+            for name in ours}
     return {"wall_ms_profiled": wall_ms, "device_span_ms": span_us / 1e3,
             "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / span_us,
             "n_kernels": len(kern), "stage_device_ms": stages,
@@ -331,6 +348,137 @@ def check_med(ny, nx, N, gen, dev, timed, card):
     return res
 
 
+def sim_t_matrix(read_pattern, dev):
+    import torch
+
+    from romanimpreprocess_tpu_torch.pipeline import sim_to_l1
+
+    return torch.from_numpy(sim_to_l1.contraction_matrix(read_pattern)).to(dev)
+
+
+def check_contract(T, ny, nx, gen, dev, timed, card):
+    import torch
+
+    from romanimpreprocess_tpu_torch.ops import contract_cuda
+
+    ngrp, nreads = T.shape
+    # Poisson-like increments: non-negative integers as float32
+    x = torch.floor(torch.rand((nreads, ny, nx), generator=gen, device=dev) * 40.0)
+    got = contract_cuda.contract_reads(T, x)
+    ref = contract_cuda.contract_reads_plain(T, x)
+    lib = torch.einsum("jr,ryx->jyx", T, x)
+    torch.cuda.synchronize()
+    # the kernel repeats the twin's ordered, rounded products and adds
+    require(torch.equal(got, ref), f"contract {tuple(x.shape)}: not bit-identical")
+    scale = ref.abs().max().item()
+    require((lib - ref).abs().max().item() <= 1e-5 * scale,
+            f"contract {tuple(x.shape)}: einsum disagrees")
+    res = {"shape": [nreads, ny, nx], "ngrp": ngrp, "bit_exact": True,
+           "max_abs_err": (got - ref).abs().max().item()}
+    if timed:
+        res["ms"] = cuda_ms(lambda: contract_cuda.contract_reads(T, x))
+        res["plain_ms"] = cuda_ms(lambda: contract_cuda.contract_reads_plain(T, x),
+                                  runs=5, warmup=1)
+        res["library_ms"] = cuda_ms(lambda: torch.einsum("jr,ryx->jyx", T, x))
+        res["library_call"] = 'torch.einsum("jr,ryx->jyx", T, x)'
+        res["bound_ms"], res["bound_by"] = bound(
+            contract_cuda.bytes_moved(ngrp, nreads, ny, nx),
+            2 * ngrp * nreads * ny * nx, card)
+    return res
+
+
+def check_ipc_fwd(ngrp, na, gen, dev, timed, card):
+    import torch
+
+    from romanimpreprocess_tpu_torch.ops import ipc, ipc_cuda
+
+    kernel = torch.rand((3, 3, na, na), generator=gen, device=dev) * 0.02
+    kernel[1, 1] = 1.0 - (kernel.sum(dim=(0, 1)) - kernel[1, 1])
+    cube = torch.rand((ngrp, na, na), generator=gen, device=dev) * 5e4
+    gain = 1.4 + 0.2 * torch.rand((na, na), generator=gen, device=dev)
+    res = {"shape": [ngrp, na, na]}
+    err = 0.0
+    for g in (None, gain):
+        got = ipc_cuda.ipc_fwd_cube(cube, kernel, g)
+        ref = ipc.ipc_fwd(cube, kernel, g)
+        torch.cuda.synchronize()
+        # same rounded steps in the same order: bit-identical
+        require(torch.equal(got, ref),
+                f"ipc_fwd {na} gain={g is not None}: not bit-identical "
+                f"(max err {(got - ref).abs().max().item()})")
+        err = max(err, (got - ref).abs().max().item())
+    res["max_abs_err"] = err
+    res["bit_exact"] = True
+    if timed:
+        res["ms"] = cuda_ms(lambda: ipc_cuda.ipc_fwd_cube(cube, kernel))
+        res["ms_with_gain"] = cuda_ms(lambda: ipc_cuda.ipc_fwd_cube(cube, kernel, gain))
+        res["plain_ms"] = cuda_ms(lambda: ipc.ipc_fwd(cube, kernel), runs=5, warmup=1)
+        res["library_ms"] = None  # per-pixel weights: no single PyTorch call
+        res["bound_ms"], res["bound_by"] = bound(
+            ipc_cuda.fwd_bytes_moved(ngrp, na), ngrp * na * na * 17, card)
+    return res
+
+
+#: the pink kernel against its plain version, as shares of the frames'
+#: standard deviation: the JAX package's gate for its Pallas kernel
+#: against its XLA path (same cast points, another order of sums)
+PINK_GATE_STD = 1e-2
+PINK_GATE_MAX = 5e-2
+
+
+def check_pink(ntr, length, gen, dev, timed, card):
+    import torch
+
+    from romanimpreprocess_tpu_torch.ops import pink, pink_cuda
+
+    white = torch.randn((ntr, 2, length), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    got = pink_cuda.pink_from_white(white)
+    torch.cuda.synchronize()
+    ref = pink.pink_from_white_plain(white)
+    require(got.shape == ref.shape == (2 * ntr, length // 2), "pink: shape")
+    require(bool(torch.isfinite(got).all()), "pink: not finite")
+    s = ref.std().item()
+    d = (got - ref).abs()
+    dstd, dmax = d.std().item() / s, d.max().item() / s
+    require(dstd < PINK_GATE_STD and dmax < PINK_GATE_MAX,
+            f"pink {ntr}x{length}: diff std {dstd}, max {dmax} of the frame std")
+    mean = got.mean(dim=-1).abs().max().item()
+    require(mean < 1e-3 * s, f"pink {ntr}x{length}: frame mean {mean}")
+    again = pink_cuda.pink_from_white(white)
+    require(torch.equal(again, got), "pink: two launches on one input differ")
+    res = {"shape": [ntr, 2, length], "max_abs_err": d.max().item(),
+           "frame_std": s, "diff_std_over_std": dstd, "diff_max_over_std": dmax,
+           "max_abs_frame_mean": mean}
+    del ref, d, again
+    if timed:
+        # the f32 transform of the same shaped spectrum by cuFFT: first
+        # half, Re and Im, mean removed (not the bf16 transform)
+        amp = pink.amplitude(length, dev)
+        spec = torch.complex((white[:, 0] * amp).float(), (white[:, 1] * amp).float())
+
+        def library():
+            x = torch.fft.fft(spec, dim=-1)[:, : length // 2]
+            blk = torch.cat([x.real, x.imag], dim=0)
+            return blk - blk.mean(dim=-1, keepdim=True)
+
+        lib = library()
+        dl = (got - lib).abs()
+        res["vs_f32_fft_diff_std_over_std"] = dl.std().item() / s
+        res["vs_f32_fft_diff_max_over_std"] = dl.max().item() / s
+        del lib, dl
+        res["ms"] = cuda_ms(lambda: pink_cuda.pink_from_white(white))
+        res["plain_ms"] = cuda_ms(lambda: pink.pink_from_white_plain(white),
+                                  runs=3, warmup=1)
+        res["library_ms"] = cuda_ms(library, runs=5, warmup=1)
+        res["library_call"] = ("torch.fft.fft of the shaped complex64 spectrum, "
+                               "first half, Re and Im, mean removed (f32, not bf16)")
+        res["bound_ms"], res["bound_by"] = bound(
+            pink_cuda.bytes_moved(ntr, length), pink_cuda.flops(ntr, length),
+            card, ops_rate=BF16_RATE)
+    return res
+
+
 KERNELS = {
     "linearity": dict(
         route="cuda", source="romanimpreprocess_tpu_torch/csrc/linearity.cu",
@@ -341,15 +489,27 @@ KERNELS = {
     "block_nanmedian": dict(
         route="cuda", source="romanimpreprocess_tpu_torch/csrc/blockmed.cu",
         replaces="romanimpreprocess_tpu/ops/median_pallas.py:55"),
+    "ipc_fwd_cube": dict(
+        route="cuda", source="romanimpreprocess_tpu_torch/csrc/ipc_fwd.cu",
+        replaces="romanimpreprocess_tpu/ops/ipc_pallas.py:285"),
+    "pink_frames": dict(
+        route="cuda", source="romanimpreprocess_tpu_torch/csrc/pink.cu",
+        replaces="romanimpreprocess_tpu/ops/pink_pallas.py:73"),
+    "contract_reads": dict(
+        route="cuda", source="romanimpreprocess_tpu_torch/csrc/contract.cu",
+        replaces="romanimpreprocess_tpu/ops/contract_pallas.py:36"),
 }
 
 
 def phase_kernels(card):
     import torch
 
+    from romanimpreprocess_tpu_torch import synth
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20240901)
+    rp = synth.READ_PATTERN_DEFAULT
     out = {}
     small = {
         "linearity": [check_lin((NGRP, 128, 128), gen, dev, False, card),
@@ -358,6 +518,14 @@ def phase_kernels(card):
                            check_ipc(3, 120, gen, dev, False, card)],
         "block_nanmedian": [check_med(130, 125, 8, gen, dev, False, card),
                             check_med(128, 120, 4, gen, dev, False, card)],
+        "ipc_fwd_cube": [check_ipc_fwd(NGRP, 120, gen, dev, False, card),
+                         check_ipc_fwd(3, 67, gen, dev, False, card)],
+        "pink_frames": [check_pink(3, 1 << 16, gen, dev, False, card),
+                        check_pink(2, 1 << 17, gen, dev, False, card)],  # n1 != n2
+        "contract_reads": [
+            check_contract(sim_t_matrix(rp, dev), 120, 120, gen, dev, False, card),
+            check_contract(torch.rand((11, 5), generator=gen, device=dev),
+                           37, 53, gen, dev, False, card)],
     }
     emit({"phase": "kernels_small", "ok": True, "results": small})
     na = NSIDE - 2 * NB
@@ -366,6 +534,16 @@ def phase_kernels(card):
     out["ipc_rev2_frame"] = check_ipc(NGRP, NSIDE, gen, dev, True, card)
     torch.cuda.empty_cache()
     out["block_nanmedian"] = check_med(na, na, 8, gen, dev, True, card)
+    torch.cuda.empty_cache()
+    out["ipc_fwd_cube"] = check_ipc_fwd(NGRP, na, gen, dev, True, card)
+    torch.cuda.empty_cache()
+    # the fill's frames at 4096^2: 6 groups x (1 common + 32 channels +
+    # amp33) = 204 frames = 102 transforms of length 2 * 4096 * 128
+    out["pink_frames"] = check_pink(NGRP * 34 // 2, 2 * NSIDE * (NSIDE // 32),
+                                    gen, dev, True, card)
+    torch.cuda.empty_cache()
+    out["contract_reads"] = check_contract(sim_t_matrix(rp, dev), na, na, gen, dev,
+                                           True, card)
     torch.cuda.empty_cache()
     emit({"phase": "kernels_full", "ok": True, "card": card, "results": out})
     return out
@@ -409,24 +587,31 @@ def _compare_l2(ref, got, what):
     return res
 
 
+def make_caldir(d, nside):
+    """The synthetic CALDIR (the port's synth) both main paths use."""
+    from romanimpreprocess_tpu_torch import synth
+
+    return synth.make_cal_files(d + "/roman_wfi", synth.READ_PATTERN_DEFAULT,
+                                nside=nside, seed=5,
+                                channelwidth=max(nside // 32, 4))
+
+
 def make_inputs(d, nside, rate_dn_s=10.0):
-    """Synthetic CALDIR + L1 (the port's synth) in directory ``d``;
-    returns (caldir, L1 path, injected rate map)."""
+    """Synthetic L1 (the port's synth) in directory ``d`` for the
+    CALDIR of :func:`make_caldir`; returns (L1 path, injected rate map)."""
     from romanimpreprocess_tpu_torch import synth
 
     rp = synth.READ_PATTERN_DEFAULT
-    caldir = synth.make_cal_files(d + "/roman_wfi", rp, nside=nside, seed=5,
-                                  channelwidth=max(nside // 32, 4))
     cal = synth.synth_cal_arrays(nside, rp, seed=5)
     data = synth.synth_l1_cube(cal, rp, seed=7, rate_dn_s=rate_dn_s, nborder=NB)
     rate = synth.injected_rate(nside, rate_dn_s, nborder=NB, seed=7)
     del cal
     amp33 = synth.synth_amp33(nside, len(rp), max(nside // 32, 4))
     synth.write_l1_file(d + "/L1.asdf", data, rp, amp33=amp33)
-    return caldir, d + "/L1.asdf", rate
+    return d + "/L1.asdf", rate
 
 
-def phase_main(card, device, nside=NSIDE):
+def phase_main(card, device, d, caldir, nside=NSIDE):
     import torch
 
     from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
@@ -435,79 +620,243 @@ def phase_main(card, device, nside=NSIDE):
 
     mods = {"linearity": linearity_cuda, "ipc_rev2_frame": ipc_cuda,
             "block_nanmedian": median_cuda}
-    d = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        t0 = time.perf_counter()
-        caldir, l1path, rate = make_inputs(d, nside)
-        t_synth = time.perf_counter() - t0
-        base = {"IN": l1path, "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True,
-                "IPC_BACKEND": "auto", "LIN_BACKEND": "auto", "SKY_BACKEND": "auto"}
-        cfg_k = dict(base, OUT=d + "/L2_cuda.asdf")
-        cfg_p = dict(base, OUT=d + "/L2_plain.asdf", IPC_BACKEND="xla",
-                     LIN_BACKEND="xla", SKY_BACKEND="xla")
+    t0 = time.perf_counter()
+    l1path, rate = make_inputs(d, nside)
+    t_synth = time.perf_counter() - t0
+    base = {"IN": l1path, "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True,
+            "IPC_BACKEND": "auto", "LIN_BACKEND": "auto", "SKY_BACKEND": "auto"}
+    cfg_k = dict(base, OUT=d + "/L2_cuda.asdf")
+    cfg_p = dict(base, OUT=d + "/L2_plain.asdf", IPC_BACKEND="xla",
+                 LIN_BACKEND="xla", SKY_BACKEND="xla")
 
-        # ---- the main path, counted ----
-        for m in mods.values():
-            m.launches = 0
-        t0 = time.perf_counter()
-        l1_to_l2.calibrateimage(cfg_k, device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        t_cal = time.perf_counter() - t0
-        launches = {k: m.launches for k, m in mods.items()}
+    # ---- the main path, counted ----
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    l1_to_l2.calibrateimage(cfg_k, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    launches = {k: m.launches for k, m in mods.items()}
 
-        pack = calfiles.load_caldir_cached(caldir)
-        l1 = asdf_lite.open(l1path)["roman"]
-        prep = l1_to_l2.prepare_inputs(l1, cfg_k, pack, device=device)
-        backends = {k: prep["cfg"][k] for k in ("ipc", "lin", "med")}
+    pack = calfiles.load_caldir_cached(caldir)
+    l1 = asdf_lite.open(l1path)["roman"]
+    prep = l1_to_l2.prepare_inputs(l1, cfg_k, pack, device=device)
+    backends = {k: prep["cfg"][k] for k in ("ipc", "lin", "med")}
 
-        # ---- the L2 product ----
-        l2 = asdf_lite.open(cfg_k["OUT"])
-        im = l2["roman"]
-        na = nside - 2 * NB
-        data = np.asarray(im["data"])
-        require(data.shape == (na, na), f"L2 data shape {data.shape}")
-        require(bool(np.isfinite(data).all()), "L2 data not finite")
-        dq = np.asarray(im["dq"])
-        require(dq.dtype == np.uint32 and (dq != 0).any(), "L2 dq not populated")
-        flat = pack.flat[NB:-NB, NB:-NB]
-        good = dq == 0
-        ratio = float(np.median((np.asarray(im["data_withsky"]) * flat)[good]
-                                / rate[NB:-NB, NB:-NB][good]))
-        corr = float(np.corrcoef(np.asarray(im["data_withsky"])[good],
-                                 rate[NB:-NB, NB:-NB][good])[0, 1])
-        require(0.97 < ratio < 1.03, f"slope/rate median ratio {ratio}")
-        require(corr > 0.9, f"slope/rate correlation {corr}")
+    # ---- the L2 product ----
+    l2 = asdf_lite.open(cfg_k["OUT"])
+    im = l2["roman"]
+    na = nside - 2 * NB
+    data = np.asarray(im["data"])
+    require(data.shape == (na, na), f"L2 data shape {data.shape}")
+    require(bool(np.isfinite(data).all()), "L2 data not finite")
+    dq = np.asarray(im["dq"])
+    require(dq.dtype == np.uint32 and (dq != 0).any(), "L2 dq not populated")
+    flat = pack.flat[NB:-NB, NB:-NB]
+    good = dq == 0
+    ratio = float(np.median((np.asarray(im["data_withsky"]) * flat)[good]
+                            / rate[NB:-NB, NB:-NB][good]))
+    corr = float(np.corrcoef(np.asarray(im["data_withsky"])[good],
+                             rate[NB:-NB, NB:-NB][good])[0, 1])
+    require(0.97 < ratio < 1.03, f"slope/rate median ratio {ratio}")
+    require(corr > 0.9, f"slope/rate correlation {corr}")
 
-        # ---- the plain path on the same device ----
-        l1_to_l2.calibrateimage(cfg_p, device=device)
-        parity = _compare_l2(asdf_lite.open(cfg_p["OUT"]), l2, "kernels vs plain")
+    # ---- the plain path on the same device ----
+    l1_to_l2.calibrateimage(cfg_p, device=device)
+    parity = _compare_l2(asdf_lite.open(cfg_p["OUT"]), l2, "kernels vs plain")
 
-        res = {"phase": "main_path", "ok": True, "card": card,
-               "nside": nside, "ngrp": NGRP, "device": str(device),
-               "backends": backends, "launches": launches,
-               "synth_s": t_synth, "calibrateimage_s": t_cal,
-               "slope_over_rate_median": ratio, "slope_rate_corr": corr,
-               "good_frac": float(good.mean()), "parity": parity}
+    res = {"phase": "main_path", "ok": True, "card": card,
+           "nside": nside, "ngrp": NGRP, "device": str(device),
+           "backends": backends, "launches": launches,
+           "synth_s": t_synth, "calibrateimage_s": t_cal,
+           "slope_over_rate_median": ratio, "slope_rate_corr": corr,
+           "good_frac": float(good.mean()), "parity": parity}
 
-        # ---- the warm core, kernels and plain path in turns ----
-        if device.type == "cuda":
-            prep_p = l1_to_l2.prepare_inputs(l1, cfg_p, pack, device=device)
-            core_k = l1_to_l2.make_core(prep["plan"], prep["cfg"], prep["geom"])
-            core_p = l1_to_l2.make_core(prep_p["plan"], prep_p["cfg"], prep_p["geom"])
-            tk, tp = [], []
-            for _ in range(2):
-                tk.append(cuda_ms(lambda: core_k(prep["arr"]), runs=5, warmup=1))
-                tp.append(cuda_ms(lambda: core_p(prep_p["arr"]), runs=5, warmup=1))
-            res["core_ms_kernels"] = tk
-            res["core_ms_plain"] = tp
-            res["profile_kernels"] = profile(lambda: core_k(prep["arr"]))
-            res["profile_plain"] = profile(lambda: core_p(prep_p["arr"]))
-            res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        emit(res)
-        return launches, backends
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+    # ---- the warm core, kernels and plain path in turns ----
+    if device.type == "cuda":
+        prep_p = l1_to_l2.prepare_inputs(l1, cfg_p, pack, device=device)
+        core_k = l1_to_l2.make_core(prep["plan"], prep["cfg"], prep["geom"])
+        core_p = l1_to_l2.make_core(prep_p["plan"], prep_p["cfg"], prep_p["geom"])
+        tk, tp = [], []
+        for _ in range(2):
+            tk.append(cuda_ms(lambda: core_k(prep["arr"]), runs=5, warmup=1))
+            tp.append(cuda_ms(lambda: core_p(prep_p["arr"]), runs=5, warmup=1))
+        res["core_ms_kernels"] = tk
+        res["core_ms_plain"] = tp
+        res["profile_kernels"] = profile(lambda: core_k(prep["arr"]))
+        res["profile_plain"] = profile(lambda: core_p(prep_p["arr"]))
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(res)
+    return launches, backends
+
+
+
+# --------------------------------------------------------------------------
+# Phase 4: sim -> L1
+# --------------------------------------------------------------------------
+
+JUMP_DET = 4
+EXPTIME = 139.8  # the synthetic scene's exposure time, s
+
+
+def phase_sim(card, device, d, caldir, nside=NSIDE):
+    import torch
+
+    from romanimpreprocess_tpu_torch import pars, synth
+    from romanimpreprocess_tpu_torch.config import pattern_to_reads
+    from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, fits_lite
+    from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc_cuda, pink_cuda,
+                                                 rand, wcsutils)
+    from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
+
+    # (module, counter attribute) of the sim's three kernels
+    counters = {"ipc_fwd_cube": (ipc_cuda, "fwd_launches"),
+                "pink_frames": (pink_cuda, "launches"),
+                "contract_reads": (contract_cuda, "launches")}
+    rp = synth.READ_PATTERN_DEFAULT
+    na = nside - 2 * NB
+    cw = max(nside // 32, 4)
+    t0 = time.perf_counter()
+    scene = synth.make_scene_file(d + "/truth_F184_163_4.fits", nside_active=na)
+    t_scene = time.perf_counter() - t0
+    base = {"IN": scene, "READS": pattern_to_reads(rp), "CALDIR": caldir, "SEED": 200}
+    cfg_k = dict(base, OUT=d + "/L1_cuda.asdf", IPC_BACKEND="auto",
+                 PINK_BACKEND="auto", CONTRACT_BACKEND="pallas")
+    cfg_p = dict(base, OUT=d + "/L1_plain.asdf", IPC_BACKEND="xla",
+                 PINK_BACKEND="xla", CONTRACT_BACKEND="dot")
+
+    # ---- the main path, counted ----
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    x = sim_to_l1.run_config(cfg_k, device=device)
+    torch.cuda.synchronize()
+    t_sim = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+    # ---- the L1 file ----
+    l1 = asdf_lite.open(cfg_k["OUT"])["roman"]
+    data = np.asarray(l1["data"])
+    require(data.shape == (NGRP, nside, nside) and data.dtype == np.uint16,
+            f"L1 data {data.shape} {data.dtype}")
+    a33 = np.asarray(l1["amp33"])
+    require(a33.shape == (NGRP, nside, cw) and a33.dtype == np.uint16,
+            f"L1 amp33 {a33.shape} {a33.dtype}")
+    rdq = np.asarray(l1["resultantdq"])
+    require(rdq.shape == (NGRP, na, na) and rdq.dtype == np.uint32,
+            f"L1 resultantdq {rdq.shape} {rdq.dtype}")
+    require(l1["meta"]["exposure"]["read_pattern"] == rp, "L1 read pattern")
+    med = [float(np.median(data[j, NB:-NB, NB:-NB])) for j in range(NGRP)]
+    require(all(b > a for a, b in zip(med, med[1:])), f"ramp not increasing: {med}")
+    require(abs(float(np.median(a33)) - 29000) < 50, "amp33 off its level")
+    sidecar = cfg_k["OUT"][:-5] + "_asdf_wcshead.txt"
+    with open(sidecar) as f:
+        hdr = fits_lite.Header.fromstring(f.read())
+    require("CRVAL1" in hdr and l1["meta"]["wcsinfo"]["CRVAL1"] == float(hdr["CRVAL1"]),
+            "WCS sidecar does not match the L1 meta")
+
+    # ---- through calibrateimage: slope recovery, CR envelope, recall ----
+    c2 = {"IN": cfg_k["OUT"], "OUT": d + "/L2_of_sim.asdf", "FITSWCS": sidecar,
+          "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True}
+    l1_to_l2.calibrateimage(c2, device=device)
+    im = asdf_lite.open(c2["OUT"])["roman"]
+    pack = calfiles.load_caldir_cached(caldir)
+    act = (slice(NB, -NB), slice(NB, -NB))
+    dq = np.asarray(im["dq"])
+    good = dq == 0
+    require(good.mean() > 0.75, f"good fraction {good.mean()}")
+    withsky = np.asarray(im["data_withsky"])
+    # against the scene: sky (through flat and gain) is the median residual
+    truth = fits_lite.open_fits(scene)[0].data[::-1, :]  # SCA 4: vertical flip
+    resid = withsky - truth / pack.gain[act] / EXPTIME
+    med_resid = float(np.median(resid[good]))
+    require(0.1 < med_resid < 0.5, f"median residual {med_resid} DN/s")
+    scale = (na / 120.0) ** 2  # the gates below are stated for 120^2 pixels
+    outliers = int((np.abs(np.where(good, resid, 0.0)) > 5).sum())
+    require(outliers < 20 * scale, f"{outliers} pixels off by more than 5 DN/s")
+    # against the charge rate the sim drew from: truth_rate / gain, less
+    # the dark, through flat and pixel area
+    area = wcsutils.pixelarea(x.wcs, N=na) / pars.Omega_ideal
+    expect = ((x.truth_rate / pack.gain[act] - pack.dark_slope[act])
+              / np.clip(pack.flat[act], 0.1, 10.0) * area)
+    # faint sky (about 0.26 DN/s): an absolute gate, because one
+    # exposure's 1/f realization shifts every slope by a few 0.01 DN/s
+    faint = good & (expect > 0.2) & (expect < 1.0)
+    sky_offset = float(np.median(withsky[faint] - expect[faint]))
+    require(faint.mean() > 0.7 and abs(sky_offset) < 0.1,
+            f"sky slope off truth_rate / gain by {sky_offset} DN/s")
+    # the stars: a relative gate
+    bright = good & (expect > 5.0)
+    require(bright.sum() > 100, f"only {bright.sum()} bright pixels")
+    ratio = float(np.median(withsky[bright] / expect[bright]))
+    require(0.97 < ratio < 1.03, f"slope / (truth_rate / gain) median {ratio}")
+    ndet = int(((dq & JUMP_DET) != 0).sum())
+    require(2 * scale <= ndet <= 60 * scale, f"{ndet} JUMP_DET pixels")
+    hit = (rdq & JUMP_DET).any(axis=0)
+    recall = float(((dq & JUMP_DET) != 0)[hit].mean())
+    require(hit.sum() >= 2 * scale and recall > 0.5, f"CR recall {recall}")
+
+    # ---- the plain path, same seed ----
+    t0 = time.perf_counter()
+    sim_to_l1.run_config(cfg_p, device=device)
+    torch.cuda.synchronize()
+    t_sim_plain = time.perf_counter() - t0
+    for name, (mod, attr) in counters.items():
+        require(getattr(mod, attr) == launches[name],
+                f"the plain sim launched kernel {name}")
+    lp = asdf_lite.open(cfg_p["OUT"])["roman"]
+    require(np.array_equal(np.asarray(lp["resultantdq"]), rdq),
+            "resultantdq differs between the kernel and plain sims")
+    parity = {}
+    for key, mine in (("data", data), ("amp33", a33)):
+        diff = np.abs(mine.astype(np.int32) - np.asarray(lp[key]).astype(np.int32))
+        same = float((diff == 0).mean())
+        require(int(diff.max()) <= 1, f"{key}: kernel and plain sims differ by {diff.max()} DN")
+        require(same >= 0.9, f"{key}: identical on only {same}")
+        parity[key] = {"max_abs_diff_dn": int(diff.max()), "identical_share": same}
+    print(f"sim kernels vs plain: data identical on {parity['data']['identical_share']:.6f}"
+          f" of pixels, amp33 on {parity['amp33']['identical_share']:.6f}", flush=True)
+    del lp, diff
+
+    res = {"phase": "sim", "ok": True, "card": card, "nside": nside, "ngrp": NGRP,
+           "nreads": rp[-1][-1] + 1, "device": str(device), "launches": launches,
+           "scene_s": t_scene, "run_config_s": t_sim, "run_config_plain_s": t_sim_plain,
+           "ramp_medians": med, "good_frac": float(good.mean()),
+           "median_resid_dn_s": med_resid, "outliers_gt5": outliers,
+           "slope_over_truth_rate_median_bright": ratio,
+           "n_bright": int(bright.sum()), "sky_slope_minus_truth_dn_s": sky_offset,
+           "jump_det": ndet,
+           "jump_det_in_reference_10k_30k": bool(10000 <= ndet <= 30000),
+           "cr_truth_pixels": int(hit.sum()), "cr_recall": recall,
+           "kernels_vs_plain": parity}
+
+    # ---- the warm sim on staged inputs, kernels and plain path in turns ----
+    rate = torch.from_numpy(x.truth_rate.astype(np.float32)).to(device)
+    del x, im, withsky, resid, expect, truth
+
+    def sim_fn(ipc_b, pink_b, contract):
+        def fn():
+            gen = rand.sim_generator(200, device)
+            cube, _ = sim_to_l1.make_l1_fullcal(
+                gen, rate, rp, pack, crparam={}, ipc_backend=ipc_b, contract=contract)
+            return sim_to_l1.fill_in_refdata_and_1f(
+                gen, cube, pack, rp, nside, cw, amp33=np.zeros(1), nborder=NB,
+                pink_backend=pink_b)
+        return fn
+
+    sim_k, sim_p = sim_fn("cuda", "cuda", "cuda"), sim_fn("xla", "xla", "dot")
+    tk, tp = [], []
+    for _ in range(2):
+        tk.append(cuda_ms(sim_k, runs=5, warmup=1))
+        tp.append(cuda_ms(sim_p, runs=5, warmup=1))
+    res["sim_ms_kernels"] = tk
+    res["sim_ms_plain"] = tp
+    res["profile_kernels"] = profile(sim_k, prefix="sim_to_l1", ours=SIM_KERNEL_NAMES)
+    res["profile_plain"] = profile(sim_p, prefix="sim_to_l1", ours=SIM_KERNEL_NAMES)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(res)
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -538,11 +887,20 @@ def main():
                     for src, p in libs.items()}})
 
     full = phase_kernels(card)
-    launches, backends = phase_main(card, torch.device("cuda"))
+    d = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        caldir = make_caldir(d, NSIDE)
+        launches, backends = phase_main(card, torch.device("cuda"), d, caldir)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches.update(phase_sim(card, torch.device("cuda"), d, caldir))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     require(all(b == "cuda" for b in backends.values()),
             f"auto did not resolve to the CUDA kernels: {backends}")
-    for name, n in launches.items():
-        require(n >= 1, f"kernel {name} was not launched on the main path")
+    for name in KERNELS:
+        require(launches[name] >= 1,
+                f"kernel {name} was not launched on its main path")
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -59,6 +59,29 @@ def resolve_backend(config, key, device):
     raise ValueError(f"{key}: unknown backend {v!r}")
 
 
+def resolve_contract_backend(config, device):
+    """Resolve ``CONTRACT_BACKEND`` to ``'dot'`` or ``'cuda'``.
+
+    The key keeps the JAX package's meaning: 'dot' (the default) and
+    'auto' are one library product (``torch.einsum``), which the
+    reference also computes outside any kernel; 'pallas' or 'cuda'
+    selects the hand-written contraction kernel, which a CPU device
+    cannot run.
+    """
+    v = str(config.get("CONTRACT_BACKEND", "dot")).lower()
+    if v in ("dot", "auto"):
+        return "dot"
+    if v in ("pallas", "cuda"):
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(
+                f"CONTRACT_BACKEND: {v!r} selects a CUDA kernel, but the "
+                f"device is {dev}; use 'dot' on the CPU"
+            )
+        return "cuda"
+    raise ValueError(f"CONTRACT_BACKEND: unknown backend {v!r}")
+
+
 def load_config(path):
     with open(path) as f:
         return yaml.safe_load(f)

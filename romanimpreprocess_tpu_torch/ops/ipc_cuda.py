@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernel for the order-2 IPC inverse on the frame.
+"""Hand-written CUDA kernels for the IPC operators: the order-2 inverse
+on the frame and one forward application on a cube.
 
 Replaces the TPU kernel ``ops/ipc_pallas.py`` ``ipc_rev2_frame_stream``
 of the JAX package, and with it the JAX package's two slab variants
@@ -16,6 +17,15 @@ xla``), with which it agrees bit for bit: the kernel repeats the twin's
 rounded steps in the same order.
 
 Bound: bytes, about 1.48 GB at 4096^2 x 6 groups (:func:`bytes_moved`).
+
+:func:`ipc_fwd_cube` replaces the TPU kernel ``ops/ipc_pallas.py``
+``ipc_fwd_cube_blocked``: one forward application of K to every group
+of an active-region cube, the sim's IL forward model.  The kernel
+(``csrc/ipc_fwd.cu``) takes the raw (3, 3, na, na) kernel as nine planes
+(the TPU kernel's padded slab layout has no counterpart here) and
+zero-fills the edge with a bounds check.  Its plain twin is
+:func:`.ipc.ipc_fwd`, with which it agrees bit for bit.  Bound: bytes,
+about 1.40 GB at 6 groups of 4088^2 (:func:`fwd_bytes_moved`).
 """
 
 import numpy as np
@@ -24,8 +34,11 @@ import torch
 from ..utils import hostcache
 from . import cuda_build, ipc
 
-#: launches of the CUDA kernel since the last reset (set it to 0 to reset)
+#: launches of the frame-inverse kernel since the last reset (set it to 0
+#: to reset)
 launches = 0
+#: launches of the forward kernel since the last reset
+fwd_launches = 0
 
 # each 4096^2 plane stack is 0.6 GB of host RAM: hold at most two
 _PLANES_CACHE = hostcache.BoundedCache(2)
@@ -97,4 +110,39 @@ def ipc_rev2_frame(data, planes, gain, nborder=4):
         )
     cuda_build.check(err, "ipc_rev2_frame_launch")
     launches += 1
+    return out
+
+
+def fwd_bytes_moved(ngrp, na, has_gain=False):
+    """Least bytes the forward function must move: the cube read and
+    written once, the nine planes (and the gain) read once."""
+    return 4 * na * na * (2 * ngrp + 9 + int(has_gain))
+
+
+def ipc_fwd_cube(cube, kernel, gain=None):
+    """One forward IPC application on a (ngrp, na, na) float32 cube:
+    :func:`.ipc.ipc_fwd` as one fused pass.  ``kernel`` is the
+    (3, 3, na, na) IPC kernel, ``gain`` an optional (na, na) plane (the
+    cube is then in DN: ``g^-1 K g``).  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel.
+    """
+    if cube.device.type == "cpu":
+        return ipc.ipc_fwd(cube, kernel, gain)
+    global fwd_launches
+    ngrp, na, _ = cube.shape
+    req = cuda_build.require
+    req(cube, "cube", torch.float32, (ngrp, na, na))
+    req(kernel, "kernel", torch.float32, (3, 3, na, na))
+    if gain is not None:
+        req(gain, "gain", torch.float32, (na, na))
+    out = torch.empty_like(cube)
+    lib = cuda_build.library("ipc_fwd.cu")
+    with torch.cuda.device(cube.device):
+        err = lib.ipc_fwd_cube_launch(
+            cube.data_ptr(), kernel.data_ptr(),
+            None if gain is None else gain.data_ptr(), out.data_ptr(),
+            ngrp, na, cuda_build.stream_ptr(cube),
+        )
+    cuda_build.check(err, "ipc_fwd_cube_launch")
+    fwd_launches += 1
     return out

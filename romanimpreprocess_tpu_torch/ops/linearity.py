@@ -67,3 +67,26 @@ def apply_linearity_cube(S, lin, do_not_flag_first=True, attempt_corr=None):
     phi = torch.where((dq_g & FALLBACK_BITS) == 0, phi, S - lin.sref)
     dq = lin.dq | torch.where(newflag.any(dim=0), NO_LIN_CORR, zero)
     return phi.to(torch.float32), dq
+
+
+def invert_linearity(Slin, lin, niter=24):
+    """DN_lin -> DN_raw by bisection on z in (-1, 1).
+
+    Same contraction as the reference (``ipc_linearity.py:380-391``):
+    after iteration j the step is 1/2**j, j = 1..niter, so z lands within
+    2**-niter of the monotone root (and saturates at the domain edge
+    automatically).  Extrapolation is disabled inside the search.
+
+    Returns (S_raw, exflag) with exflag True where the final evaluation
+    was out of range (mirrors the reference's last-iteration flag).
+    ``lin.coefs`` broadcasts against ``Slin`` along the trailing axes, so
+    a (ngrp, ny, nx) batch shares one (order+1, ny, nx) stack.
+    """
+    z = torch.zeros_like(Slin)
+    exflag = torch.zeros(Slin.shape, dtype=torch.bool, device=Slin.device)
+    for j in range(1, niter + 1):
+        phi, exflag = legendre_eval(z, lin.coefs, linextrap=False)
+        step = 0.5 ** j
+        z = z + torch.where(phi < Slin, step, -step)
+    S = lin.smin + 0.5 * (lin.smax - lin.smin) * (1.0 + z)
+    return S, exflag

@@ -136,17 +136,18 @@ def _add_active(x, y, nb):
     return out
 
 
-class _Stages:
-    """Labels the core's stages as ``l1_to_l2.<stage>`` ranges for
-    ``torch.profiler`` (a few microseconds each when no profiler runs):
-    ``stage(name)`` ends the open range and opens the next."""
+class StageRanges:
+    """Labels a device function's stages as ``<prefix>.<stage>`` ranges
+    for ``torch.profiler`` (a few microseconds each when no profiler
+    runs): ``stage(name)`` ends the open range and opens the next."""
 
-    def __init__(self):
+    def __init__(self, prefix="l1_to_l2"):
+        self._prefix = prefix
         self._open = None
 
     def __call__(self, name):
         self.close()
-        self._open = torch.profiler.record_function(f"l1_to_l2.{name}")
+        self._open = torch.profiler.record_function(f"{self._prefix}.{name}")
         self._open.__enter__()
 
     def close(self):
@@ -176,7 +177,7 @@ def make_core(plan, cfg, geom):
         zero = torch.zeros((), dtype=torch.int32, device=dev)
 
         # ---- dq initialization (romancal do_dqinit analog) ----
-        stage = _Stages()
+        stage = StageRanges()
         stage("saturation")
         pdq = arr["mask_dq"]
         rdq = torch.zeros(data.shape, dtype=torch.int32, device=dev)

@@ -1,4 +1,4 @@
-"""Synthetic calibration reference files and L1 exposures.
+"""Synthetic truth scenes, calibration reference files and L1 exposures.
 
 Productionized equivalent of the reference test fixtures ``genfile`` /
 ``gencal`` (``tests/romanimpreprocess/test_workflow.py:32-332``) —
@@ -26,7 +26,64 @@ made without a scene simulation.
 
 import numpy as np
 
-from ..io import asdf_lite
+from ..io import asdf_lite, fits_lite
+
+
+def make_scene_file(path, nside_active=4088, nstars=25, exptime=139.8,
+                    filt="F184", crval=(37.0, -20.0), seed=None,
+                    image=None):
+    """Write a synthetic truth FITS image (Gaussian stars + SIP TAN WCS).
+
+    Mirrors reference ``genfile`` (``test_workflow.py:32-89``): star j
+    has flux 10000*j e (over the exposure) at quasi-random grid points;
+    the header carries EXPTIME/FILTER/SIP-TAN WCS/pointing keywords.
+    ``image`` overrides the star field with a caller-supplied truth
+    array (e.g. a polynomial sky for coefficient-recovery gates).
+    Returns the path.
+    """
+    N = nside_active
+    if image is not None:
+        img = np.asarray(image, np.float64)
+        if img.shape != (N, N):
+            raise ValueError("image shape must be (nside_active,)*2")
+    else:
+        img = np.zeros((N, N))
+        x_, y_ = np.meshgrid(np.arange(N), np.arange(N))
+        for j in range(nstars):
+            x = 10 + (N - 20) * j / float(nstars)
+            y = 10 + (N - 20) * ((13 * j) % nstars) / float(nstars)
+            img += 10000.0 * j * np.exp(
+                -0.5 * ((x_ - x) ** 2 + (y_ - y) ** 2) / 2**2
+            )
+
+    h = fits_lite.Header()
+    h["EXPTIME"] = float(exptime)
+    h["FILTER"] = filt
+    h["CRPIX1"] = (N + 1) / 2.0
+    h["CRPIX2"] = (N + 1) / 2.0
+    h["CD1_1"] = 3.0555555555555554e-05
+    h["CD1_2"] = 0.0
+    h["CD2_1"] = 0.0
+    h["CD2_2"] = 3.0555555555555554e-05
+    h["CTYPE1"] = "RA---TAN-SIP"
+    h["CTYPE2"] = "DEC--TAN-SIP"
+    h["CRVAL1"] = float(crval[0])
+    h["CRVAL2"] = float(crval[1])
+    h["LONPOLE"] = 215.0
+    h["A_ORDER"] = 2
+    h["A_0_2"] = 2.0e-6
+    h["A_1_1"] = -1.0e-6
+    h["A_2_0"] = 3.0e-6
+    h["B_ORDER"] = 2
+    h["B_0_2"] = 1.4e-5
+    h["B_1_1"] = -1.0e-5
+    h["B_2_0"] = 3.0e-7
+    h["RA_TARG"] = float(crval[0])
+    h["DEC_TARG"] = float(crval[1])
+    h["PA_OBSY"] = 185.0
+    h["DATE-OBS"] = "2026-01-01 00:00:00"
+    fits_lite.PrimaryHDU(img.astype(np.float32), header=h).writeto(path)
+    return path
 
 
 def make_cal_files(cstem, read_pattern, nside=4096, nborder=4,

@@ -9,9 +9,14 @@ run it without the conftest:
 
 Tolerances: the kernels repeat their plain twins' rounded steps in the
 same order (no FMA contraction), so linearity (cube and DQ), the block
-nanmedian and the L1 -> L2 product are held bit for bit; the IPC inverse
-is held to 1e-5 of the largest value, the JAX package's own gate for its
-Pallas kernel.
+nanmedian, the read contraction, the forward IPC and the L1 -> L2
+product are held bit for bit; the IPC inverse is held to 1e-5 of the
+largest value, the JAX package's own gate for its Pallas kernel.  The
+pink transform shares its twin's cast points and sums in another order:
+difference std < 1e-2 and max < 5e-2 of the frame std (the JAX
+package's gate for its two paths).  The sim with kernels against the
+plain sim, one seed: within 1 DN on every pixel (the pink frames differ
+in their last bits before the rounding to integer DN).
 """
 
 import numpy as np
@@ -21,9 +26,10 @@ import torch
 from romanimpreprocess_tpu_torch import synth
 from romanimpreprocess_tpu_torch.dqflags import i32, pixel
 from romanimpreprocess_tpu_torch.io import asdf_lite
-from romanimpreprocess_tpu_torch.ops import (ipc_cuda, linearity,
-                                             linearity_cuda, median_cuda, sky)
-from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
+from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc, ipc_cuda,
+                                             linearity, linearity_cuda,
+                                             median_cuda, pink, pink_cuda, sky)
+from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
 
 torch.set_num_threads(1)
 
@@ -140,3 +146,86 @@ def test_calibrateimage_kernels_match_plain_path(cuda_device, tmp_path):
     for k in ("skycoefs", "endslice"):
         np.testing.assert_array_equal(np.asarray(got["processinfo"][k]),
                                       np.asarray(ref["processinfo"][k]), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ngrp,nreads,ny,nx", [(6, 14, 120, 120), (11, 5, 37, 53)])
+def test_contract_cuda_bit_identical(cuda_device, ngrp, nreads, ny, nx):
+    rng = np.random.RandomState(ngrp)
+    T = torch.from_numpy(rng.normal(size=(ngrp, nreads)).astype(np.float32)).to(cuda_device)
+    x = torch.from_numpy(rng.poisson(20.0, (nreads, ny, nx)).astype(np.float32)).to(cuda_device)
+    n0 = contract_cuda.launches
+    got = contract_cuda.contract_reads(T, x)
+    ref = contract_cuda.contract_reads_plain(T, x)
+    torch.cuda.synchronize()
+    assert contract_cuda.launches == n0 + 1
+    assert torch.equal(got, ref)
+    lib = torch.einsum("jr,ryx->jyx", T, x)
+    assert (got - lib).abs().max() <= 1e-5 * lib.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ngrp,na", [(6, 120), (3, 67)])
+def test_ipc_fwd_cuda_bit_identical(cuda_device, ngrp, na):
+    rng = np.random.RandomState(na)
+    K = rng.uniform(0, 0.02, (3, 3, na, na)).astype(np.float32)
+    K[1, 1] = 1 - K.sum(axis=(0, 1)) + K[1, 1]
+    K = torch.from_numpy(K).to(cuda_device)
+    cube = torch.from_numpy(rng.uniform(0, 5e4, (ngrp, na, na)).astype(np.float32)).to(cuda_device)
+    gain = torch.from_numpy(rng.uniform(1.4, 1.6, (na, na)).astype(np.float32)).to(cuda_device)
+    for g in (None, gain):
+        n0 = ipc_cuda.fwd_launches
+        got = ipc_cuda.ipc_fwd_cube(cube, K, g)
+        ref = ipc.ipc_fwd(cube, K, g)
+        torch.cuda.synchronize()
+        assert ipc_cuda.fwd_launches == n0 + 1
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntr,length", [(3, 1 << 16), (2, 1 << 17)])
+def test_pink_cuda_matches_plain(cuda_device, ntr, length):
+    gen = torch.Generator(device=cuda_device).manual_seed(length)
+    white = torch.randn((ntr, 2, length), generator=gen, device=cuda_device,
+                        dtype=torch.bfloat16)
+    n0 = pink_cuda.launches
+    got = pink_cuda.pink_from_white(white)
+    torch.cuda.synchronize()
+    assert pink_cuda.launches == n0 + 1
+    ref = pink.pink_from_white_plain(white)
+    assert got.shape == ref.shape == (2 * ntr, length // 2)
+    s = ref.std()
+    d = (got - ref).abs()
+    assert d.std() < 1e-2 * s and d.max() < 5e-2 * s
+    assert got.mean(dim=-1).abs().max() < 1e-3 * s
+    assert torch.equal(pink_cuda.pink_from_white(white), got)  # no atomics
+    with pytest.raises(ValueError, match="multiples of 128"):
+        pink_cuda.pink_from_white(white[:, :, : 1 << 12].contiguous())
+
+
+@pytest.mark.cuda
+def test_run_config_kernels_match_plain_path(cuda_device, tmp_path):
+    d = str(tmp_path)
+    rp = synth.READ_PATTERN_DEFAULT
+    reads = [v for g in rp for v in (g[0], g[-1] + 1)]
+    # 256^2 with two 128-wide channels: the smallest frame whose pink
+    # length (2 * 256 * 128 = 2^16) takes the kernel's branch
+    scene = synth.make_scene_file(d + "/truth_F184_163_4.fits", nside_active=248,
+                                  nstars=3)
+    caldir = synth.make_cal_files(d + "/cal", rp, nside=256, seed=5, channelwidth=128)
+    base = {"IN": scene, "READS": reads, "CALDIR": caldir, "SEED": 7}
+    counts = lambda: (contract_cuda.launches, ipc_cuda.fwd_launches, pink_cuda.launches)
+    n0 = counts()
+    sim_to_l1.run_config(dict(base, OUT=d + "/k.asdf", CONTRACT_BACKEND="pallas"),
+                         device=cuda_device)
+    assert counts() == tuple(n + 1 for n in n0)
+    sim_to_l1.run_config(dict(base, OUT=d + "/p.asdf", IPC_BACKEND="xla",
+                              PINK_BACKEND="xla", CONTRACT_BACKEND="dot"),
+                         device=cuda_device)
+    assert counts() == tuple(n + 1 for n in n0)
+    got, ref = asdf_lite.open(d + "/k.asdf")["roman"], asdf_lite.open(d + "/p.asdf")["roman"]
+    np.testing.assert_array_equal(got["resultantdq"], ref["resultantdq"])
+    for k in ("data", "amp33"):
+        diff = np.abs(got[k].astype(np.int32) - ref[k].astype(np.int32))
+        assert diff.max() <= 1, k
+        assert (diff == 0).mean() >= 0.9, k

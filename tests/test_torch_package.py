@@ -24,7 +24,7 @@ from romanimpreprocess_tpu.synth import make_cal_files as jmake_cal_files
 from romanimpreprocess_tpu_torch import config, synth
 from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
 from romanimpreprocess_tpu_torch.ops import cuda_build
-from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
+from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
 
 torch.set_num_threads(1)
 
@@ -53,7 +53,10 @@ def test_every_module_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 25
+    assert int(r.stdout.strip()) >= 32
+    for m in ("ops.contract_cuda", "ops.pink", "ops.pink_cuda", "ops.rand",
+              "utils.skymodel", "pipeline.sim_to_l1"):
+        assert "romanimpreprocess_tpu_torch." + m in _modules()
 
 
 def test_no_port_file_names_jax_or_the_jax_package():
@@ -98,6 +101,42 @@ def test_unknown_backend_raises():
     with pytest.raises(ValueError):
         config.resolve_backend({"LIN_BACKEND": "triton"}, "LIN_BACKEND", "cpu")
     assert config.resolve_backend({}, "SKY_BACKEND", "cpu") == "xla"
+
+
+@pytest.mark.parametrize("value,dev,want", [
+    (None, "cpu", "dot"), ("dot", "cpu", "dot"), ("auto", "cpu", "dot"),
+    ("AUTO", "cuda", "dot"), ("dot", "cuda", "dot"), ("pallas", "cuda", "cuda"),
+    ("cuda", "cuda", "cuda"),
+])
+def test_resolve_contract_backend(value, dev, want):
+    cfg = {} if value is None else {"CONTRACT_BACKEND": value}
+    assert config.resolve_contract_backend(cfg, dev) == want
+
+
+@pytest.mark.parametrize("value,exc", [("pallas", "CUDA kernel"), ("cuda", "CUDA kernel"),
+                                       ("xla", "unknown backend")])
+def test_contract_backend_refused_on_cpu(value, exc):
+    with pytest.raises(ValueError, match=exc):
+        config.resolve_contract_backend({"CONTRACT_BACKEND": value}, "cpu")
+
+
+@pytest.mark.parametrize("key", ["IPC_BACKEND", "PINK_BACKEND", "CONTRACT_BACKEND"])
+def test_sim_kernel_backend_on_cpu_device_raises(small, key):
+    d, caldir = small
+    scene = synth.make_scene_file(d + f"/truth_{key}_1_4.fits", nside_active=56, nstars=2)
+    cfg = {"IN": scene, "OUT": d + "/unused.asdf", "CALDIR": caldir, key: "pallas",
+           "READS": config.pattern_to_reads(READ_PATTERN)}
+    with pytest.raises(ValueError, match=key):
+        sim_to_l1.run_config(cfg, device="cpu")
+
+
+def test_sim_defaults_to_cuda_and_raises_without_one(small):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_to_l1.run_config({"IN": "unused", "OUT": "unused", "READS": [0, 1]})
+    with pytest.raises(SystemExit):
+        sim_to_l1.main([])  # the config argument is required
 
 
 def test_no_device_means_cuda_and_raises_without_one():

@@ -9,9 +9,10 @@ Phases, each printing one JSON line:
    ``romanimpreprocess_tpu_torch/csrc`` into ``build/torch_ext/``.
 2. kernels: each hand-written CUDA kernel (linearity, IPC frame inverse,
    block nanmedian, forward IPC, pink-noise transform, read
-   contraction) against its plain PyTorch version on the card, at the
-   main paths' shapes (4096^2 x 6 groups; the 4088^2 active frame; 14
-   reads; 102 transforms of 2^20) and at small ragged shapes;
+   contraction, and the three slab-layout IPC inverses: blocked,
+   streaming, fused full frame) against its plain PyTorch version on the
+   card, at the main paths' shapes (4096^2 x 6 groups; the 4088^2 active
+   frame; 14 reads; 102 transforms of 2^20) and at small ragged shapes;
    CUDA-event medians of the kernel, the plain version and, where one
    exists, a single PyTorch call computing the same function; the least
    time the card could take (bytes over the memory rate, operations
@@ -23,7 +24,16 @@ Phases, each printing one JSON line:
    held against the plain path on the card (every backend ``xla``);
    the warm core timed with CUDA events, kernels and plain path in
    turns.
-4. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
+4. main path, L1 -> L2 with the likelihood fit: the same CALDIR and L1
+   through ``calibrateimage`` with ``romancal_ramp_fit: True``, once
+   with ``IPC_BACKEND: pallas`` (the blocked slab kernel through its
+   fused full-frame form) and once with ``pallas-stream`` (the
+   streaming slab kernel), launch counts read around each run; ``dumo``
+   and ``chisq`` checked; the two L2 trees held bit for bit against each
+   other and against the plain route (the slab twin, ``LIN``/``SKY``
+   ``xla``), and within the slice tolerances against the frame route
+   (``pallas-frame``); the warm core timed and profiled.
+5. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
    through ``sim_to_l1.run_config`` on ``cuda`` (6 groups, 14 reads;
    ``IPC_BACKEND``/``PINK_BACKEND`` ``auto``, ``CONTRACT_BACKEND:
    pallas``), launch counts read around that run; the L1 file checked
@@ -112,7 +122,8 @@ def cuda_ms(fn, runs=10, warmup=2):
 
 
 L2_KERNEL_NAMES = ("linearity_kernel", "ipc_rev2_frame_kernel",
-                   "block_nanmedian_kernel")
+                   "block_nanmedian_kernel", "ipc_slab_blocked_kernel",
+                   "ipc_slab_stream_kernel")
 SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_pass", "contract_kernel")
 
 
@@ -419,6 +430,86 @@ def check_ipc_fwd(ngrp, na, gen, dev, timed, card):
     return res
 
 
+def check_ipc_slab(ngrp, na, gen, dev, timed, card, with_gain=True, padded=True,
+                   th=32):
+    """The three slab-layout IPC inverses on one input: the blocked and
+    the streaming kernel on the (ngrp, na, na) active cube, the fused
+    form on the (ngrp, na + 2 NB, na + 2 NB) frame.  They repeat the
+    twin's rounded steps in its order, so every comparison is bit for
+    bit: each against the twin, blocked against streaming, the fused
+    frame's active region against blocked and its border against the
+    input, and a second launch against the first."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.ops import ipc_slab
+
+    nside = na + 2 * NB
+    K = torch.rand((3, 3, na, na), generator=gen, device=dev) * 0.02
+    K[1, 1] = 1.0 - (K.sum(dim=(0, 1)) - K[1, 1])
+    data = torch.rand((ngrp, nside, nside), generator=gen, device=dev) * 1000.0
+    gain_frame = 1.4 + 0.2 * torch.rand((nside, nside), generator=gen, device=dev)
+    # the active view of the full-frame gain, as the main path passes it
+    gain = gain_frame[NB : nside - NB, NB : nside - NB] if with_gain else None
+    kern = K
+    if padded:
+        kern = torch.from_numpy(
+            ipc_slab.kernel_planes_padded(K.cpu().numpy(), th=th)).to(dev)
+    cube = data[:, NB : nside - NB, NB : nside - NB].contiguous()
+    what = f"ipc_slab {ngrp}x{na} gain={with_gain} padded={padded}"
+
+    calls = {
+        "ipc_rev2_cube_blocked": lambda: ipc_slab.ipc_rev2_cube_blocked(
+            cube, kern, gain, th=th),
+        "ipc_rev2_cube_stream": lambda: ipc_slab.ipc_rev2_cube_stream(
+            cube, kern, gain, th=th),
+        "correct_cube_fused": lambda: ipc_slab.correct_cube_fused(
+            data, kern, gain, nborder=NB, th=th),
+    }
+    twins = {
+        "ipc_rev2_cube_blocked": lambda: ipc_slab.ipc_rev2_plain(
+            cube, K.reshape(9, na, na), gain),
+        "correct_cube_fused": lambda: ipc_slab.correct_cube_plain(
+            data, kern, gain, nborder=NB, th=th),
+    }
+    twins["ipc_rev2_cube_stream"] = twins["ipc_rev2_cube_blocked"]
+    got = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    res = {}
+    for k, fn in twins.items():
+        ref = fn()
+        err = (got[k] - ref).abs().max().item()
+        require(torch.equal(got[k], ref), f"{what}: {k} not bit-identical to its "
+                f"twin (max err {err})")
+        require(torch.equal(calls[k](), got[k]), f"{what}: two launches of {k} differ")
+        res[k] = {"shape": list(got[k].shape), "gain": with_gain, "padded": padded,
+                  "max_abs_err": err, "bit_exact": True}
+        del ref
+    blocked, fused = got["ipc_rev2_cube_blocked"], got["correct_cube_fused"]
+    require(torch.equal(blocked, got["ipc_rev2_cube_stream"]),
+            f"{what}: blocked and streaming kernels differ")
+    require(torch.equal(fused[:, NB : nside - NB, NB : nside - NB], blocked),
+            f"{what}: fused active region differs from the blocked kernel")
+    border = torch.ones((nside, nside), dtype=torch.bool, device=dev)
+    border[NB : nside - NB, NB : nside - NB] = False
+    require(torch.equal(fused[:, border], data[:, border]),
+            f"{what}: fused border not passed through")
+    del got, blocked, fused
+    if timed:
+        nbytes = {
+            "ipc_rev2_cube_blocked": ipc_slab.bytes_moved(ngrp, na, with_gain),
+            "ipc_rev2_cube_stream": ipc_slab.bytes_moved(ngrp, na, with_gain),
+            "correct_cube_fused": ipc_slab.fused_bytes_moved(ngrp, nside, NB, with_gain),
+        }
+        for k in calls:
+            res[k]["ms"] = cuda_ms(calls[k])
+            res[k]["plain_ms"] = cuda_ms(twins[k], runs=3, warmup=1)
+            # the weights vary per pixel: no single PyTorch call computes it
+            res[k]["library_ms"] = None
+            res[k]["bound_ms"], res[k]["bound_by"] = bound(
+                nbytes[k], ngrp * na * na * 42, card)
+    return res
+
+
 #: the pink kernel against its plain version, as shares of the frames'
 #: standard deviation: the JAX package's gate for its Pallas kernel
 #: against its XLA path (same cast points, another order of sums)
@@ -498,7 +589,17 @@ KERNELS = {
     "contract_reads": dict(
         route="cuda", source="romanimpreprocess_tpu_torch/csrc/contract.cu",
         replaces="romanimpreprocess_tpu/ops/contract_pallas.py:36"),
+    "ipc_rev2_cube_blocked": dict(
+        route="cuda", source="romanimpreprocess_tpu_torch/csrc/ipc_slab.cu",
+        replaces="romanimpreprocess_tpu/ops/ipc_pallas.py:141"),
+    "ipc_rev2_cube_stream": dict(
+        route="cuda", source="romanimpreprocess_tpu_torch/csrc/ipc_slab.cu",
+        replaces="romanimpreprocess_tpu/ops/ipc_pallas.py:221"),
+    "correct_cube_fused": dict(
+        route="cuda", source="romanimpreprocess_tpu_torch/csrc/ipc_slab.cu",
+        replaces="romanimpreprocess_tpu/ops/ipc_pallas.py:335"),
 }
+SLAB_KERNELS = ("ipc_rev2_cube_blocked", "ipc_rev2_cube_stream", "correct_cube_fused")
 
 
 def phase_kernels(card):
@@ -527,6 +628,14 @@ def phase_kernels(card):
             check_contract(torch.rand((11, 5), generator=gen, device=dev),
                            37, 53, gen, dev, False, card)],
     }
+    slab_small = [
+        check_ipc_slab(3, 96, gen, dev, False, card, True, True, th=16),
+        check_ipc_slab(2, 100, gen, dev, False, card, False, False, th=16),
+        check_ipc_slab(1, 100, gen, dev, False, card, True, False, th=8),
+        check_ipc_slab(1, 131, gen, dev, False, card, False, True, th=32),
+    ]
+    for k in SLAB_KERNELS:
+        small[k] = [r[k] for r in slab_small]
     emit({"phase": "kernels_small", "ok": True, "results": small})
     na = NSIDE - 2 * NB
     out["linearity"] = check_lin((NGRP, NSIDE, NSIDE), gen, dev, True, card)
@@ -545,6 +654,9 @@ def phase_kernels(card):
     out["contract_reads"] = check_contract(sim_t_matrix(rp, dev), na, na, gen, dev,
                                            True, card)
     torch.cuda.empty_cache()
+    # as the main path calls them: gain, the pre-padded planes at th=32
+    out.update(check_ipc_slab(NGRP, na, gen, dev, True, card, True, True, th=32))
+    torch.cuda.empty_cache()
     emit({"phase": "kernels_full", "ok": True, "card": card, "results": out})
     return out
 
@@ -553,33 +665,44 @@ def phase_kernels(card):
 # Phase 3: the main path
 # --------------------------------------------------------------------------
 
-def _compare_l2(ref, got, what):
-    """The slice's parity rules: DQ bit-exact except JUMP_DET on at most
-    1e-4 of pixels; science/variance maps within rtol 1e-5 and atol
-    1e-5 max|ref|; sky coefficients within rtol 1e-4; endslice exact."""
-    jump = 4
+def _compare_l2(ref, got, what, loose_bits=4, gate_sky=True, atol_frac=1e-5,
+                outside_frac=0.0):
+    """The slice's parity rules: DQ bit-exact except ``loose_bits``
+    (JUMP_DET; with the likelihood fit also DO_NOT_USE, which a jump
+    too early to refit sets) on at most 1e-4 of pixels;
+    science/variance maps within rtol 1e-5 and atol ``atol_frac``
+    max|ref| (1e-5 between two paths that round alike) on all but
+    ``outside_frac`` of the pixels; sky coefficients within rtol 1e-4 (reported only, with ``gate_sky``
+    off); endslice exact."""
     rr, gr = ref["roman"], got["roman"]
     dq_r, dq_g = np.asarray(rr["dq"]), np.asarray(gr["dq"])
     diff = dq_r ^ dq_g
-    require(not (diff & ~np.uint32(jump)).any(), f"{what}: DQ differs beyond JUMP_DET")
+    require(not (diff & ~np.uint32(loose_bits)).any(),
+            f"{what}: DQ differs beyond bits {loose_bits}")
     jump_frac = float((diff != 0).mean())
     require(jump_frac <= 1e-4, f"{what}: JUMP_DET differs on {jump_frac}")
     res = {"jump_det_diff_frac": jump_frac}
     for k in ("data", "data_withsky", "err", "var_poisson", "var_rnoise"):
         r, g = np.asarray(rr[k]), np.asarray(gr[k])
         scale = float(np.abs(r).max())
-        ok = np.abs(g - r) <= 1e-5 * np.abs(r) + 1e-5 * scale
+        ok = np.abs(g - r) <= 1e-5 * np.abs(r) + atol_frac * scale
         # pixels whose JUMP_DET flag differs may fit other slopes
         ok |= (diff != 0)
         res[k + "_max_abs_err"] = float(np.abs(g - r).max())
-        require(bool(ok.all()), f"{what}: {k} differs ({res[k + '_max_abs_err']} of {scale})")
+        res[k + "_outside_frac"] = float(1.0 - ok.mean())
+        require(res[k + "_outside_frac"] <= outside_frac,
+                f"{what}: {k} differs on {res[k + '_outside_frac']} of pixels "
+                f"(largest {res[k + '_max_abs_err']} of {scale})")
     rp, gp = ref["processinfo"], got["processinfo"]
     sc_r, sc_g = np.asarray(rp["skycoefs"]), np.asarray(gp["skycoefs"])
-    require(np.allclose(sc_g, sc_r, rtol=1e-4, atol=1e-4 * np.abs(sc_r).max()),
+    res["skycoefs_within_gate"] = bool(
+        np.allclose(sc_g, sc_r, rtol=1e-4, atol=1e-4 * np.abs(sc_r).max()))
+    require(res["skycoefs_within_gate"] or not gate_sky,
             f"{what}: skycoefs {sc_g} vs {sc_r}")
     require(np.array_equal(np.asarray(rp["endslice"]), np.asarray(gp["endslice"])),
             f"{what}: endslice differs")
     res["skycoefs_max_abs_err"] = float(np.abs(sc_g - sc_r).max())
+    res["skycoefs_max_abs"] = float(np.abs(sc_r).max())
     res["bit_exact"] = bool(
         np.array_equal(dq_r, dq_g) and np.array_equal(sc_r, sc_g)
         and all(np.array_equal(np.asarray(rr[k]), np.asarray(gr[k]))
@@ -688,12 +811,181 @@ def phase_main(card, device, d, caldir, nside=NSIDE):
         res["profile_plain"] = profile(lambda: core_p(prep_p["arr"]))
         res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit(res)
-    return launches, backends
+    return launches, backends, l1path, rate
+
+
+# --------------------------------------------------------------------------
+# Phase 4: L1 -> L2 with the likelihood fit and the slab IPC kernels
+# --------------------------------------------------------------------------
+
+L2_FIELDS = ("data", "data_withsky", "dq", "err", "var_poisson", "var_rnoise",
+             "dumo", "chisq")
+
+
+def _require_same_tree(a, b, what):
+    for k in L2_FIELDS:
+        require(np.array_equal(np.asarray(a["roman"][k]), np.asarray(b["roman"][k])),
+                f"{what}: {k} differs")
+    for k in ("skycoefs", "endslice", "medsky"):
+        require(np.array_equal(np.asarray(a["processinfo"][k]),
+                               np.asarray(b["processinfo"][k])), f"{what}: {k} differs")
+
+
+def phase_likely(card, device, d, caldir, l1path, rate, nside=NSIDE):
+    import torch
+
+    from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
+    from romanimpreprocess_tpu_torch.ops import (ipc_cuda, ipc_slab, linearity_cuda,
+                                                 median_cuda)
+    from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
+
+    counters = {"linearity": (linearity_cuda, "launches"),
+                "ipc_rev2_frame": (ipc_cuda, "launches"),
+                "block_nanmedian": (median_cuda, "launches"),
+                "ipc_rev2_cube_blocked": (ipc_slab, "blocked_launches"),
+                "ipc_rev2_cube_stream": (ipc_slab, "stream_launches"),
+                "correct_cube_fused": (ipc_slab, "fused_launches")}
+    base = {"IN": l1path, "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True,
+            "romancal_ramp_fit": True, "LIN_BACKEND": "auto", "SKY_BACKEND": "auto"}
+    cfgs = {"pallas": dict(base, OUT=d + "/L2_likely_slab.asdf", IPC_BACKEND="pallas"),
+            "pallas-stream": dict(base, OUT=d + "/L2_likely_stream.asdf",
+                                  IPC_BACKEND="pallas-stream"),
+            "pallas-frame": dict(base, OUT=d + "/L2_likely_frame.asdf",
+                                 IPC_BACKEND="pallas-frame")}
+    want = {"pallas": {"linearity": 1, "block_nanmedian": 1, "ipc_rev2_frame": 0,
+                       "ipc_rev2_cube_blocked": 1, "correct_cube_fused": 1,
+                       "ipc_rev2_cube_stream": 0},
+            "pallas-stream": {"linearity": 1, "block_nanmedian": 1, "ipc_rev2_frame": 0,
+                              "ipc_rev2_cube_blocked": 0, "correct_cube_fused": 0,
+                              "ipc_rev2_cube_stream": 1},
+            "pallas-frame": {"linearity": 1, "block_nanmedian": 1, "ipc_rev2_frame": 1,
+                             "ipc_rev2_cube_blocked": 0, "correct_cube_fused": 0,
+                             "ipc_rev2_cube_stream": 0}}
+
+    # ---- the main path under each IPC route, counted ----
+    launches, seconds, outs = {}, {}, {}
+    for name, cfg in cfgs.items():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        outs[name] = l1_to_l2.calibrateimage(cfg, device=device, return_arrays=True)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        require(launches[name] == want[name],
+                f"IPC_BACKEND {name}: launches {launches[name]}, expected {want[name]}")
+    trees = {name: asdf_lite.open(cfg["OUT"]) for name, cfg in cfgs.items()}
+
+    # ---- the L2 product of the blocked route ----
+    pack = calfiles.load_caldir_cached(caldir)
+    im = trees["pallas"]["roman"]
+    na = nside - 2 * NB
+    dq = np.asarray(im["dq"])
+    good = dq == 0
+    require(good.mean() > 0.75, f"good fraction {good.mean()}")
+    stats = {}
+    for k in ("dumo", "chisq"):
+        a = np.asarray(im[k])
+        require(a.dtype == np.float16 and a.shape == (na, na), f"L2 {k}: {a.dtype} {a.shape}")
+        require(bool(np.isfinite(a[good].astype(np.float32)).all()),
+                f"L2 {k} not finite on good pixels")
+        stats[k + "_median_good"] = float(np.median(a[good].astype(np.float32)))
+    data = np.asarray(im["data"])
+    require(data.shape == (na, na) and bool(np.isfinite(data).all()), "L2 data")
+    flat = pack.flat[NB:-NB, NB:-NB]
+    act_rate = rate[NB:-NB, NB:-NB]
+    withsky = np.asarray(im["data_withsky"])
+    ratio = float(np.median((withsky * flat)[good] / act_rate[good]))
+    corr = float(np.corrcoef(withsky[good], act_rate[good])[0, 1])
+    require(0.97 < ratio < 1.03, f"likelihood slope/rate median ratio {ratio}")
+    require(corr > 0.9, f"likelihood slope/rate correlation {corr}")
+    dumo_ratio = float(np.median((np.asarray(im["dumo"]).astype(np.float32) * flat)[good]
+                                 / act_rate[good]))
+    require(0.9 < dumo_ratio < 1.1, f"dumo/rate median ratio {dumo_ratio}")
+    # the synthetic ramp carries 6 DN of noise on every resultant and no
+    # shot noise, which is not the CALDIR's read-noise and gain model,
+    # so the median chi-square per dof is reported and not gated
+    print(f"likelihood fit: median chisq per dof on good pixels "
+          f"{stats['chisq_median_good']:.4f} (reported, not gated)", flush=True)
+
+    # ---- blocked against streaming: bit for bit ----
+    _require_same_tree(trees["pallas"], trees["pallas-stream"],
+                       "IPC_BACKEND pallas vs pallas-stream")
+
+    # ---- against the plain route: the slab twin, LIN / SKY xla ----
+    l1 = asdf_lite.open(l1path)["roman"]
+    cfg_p = dict(cfgs["pallas"], LIN_BACKEND="xla", SKY_BACKEND="xla")
+    prep_p = l1_to_l2.prepare_inputs(l1, cfg_p, pack, device=device)
+    prep_p["cfg"]["ipc"] = "slab-plain"
+    core_p = l1_to_l2.make_core(prep_p["plan"], prep_p["cfg"], prep_p["geom"])
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    out_p = l1_to_l2.to_host(core_p(prep_p["arr"]))
+    require(all(getattr(mod, attr) == 0 for mod, attr in counters.values()),
+            "the plain route launched a kernel")
+    require(set(out_p) == set(outs["pallas"]), "plain route: other outputs")
+    for k, v in out_p.items():
+        require(np.array_equal(v, outs["pallas"][k]),
+                f"kernels vs plain route: core output {k} differs")
+
+    # ---- against the frame route: another order of summation ----
+    # The two routes round the corrected cube differently by an ulp or
+    # two.  This exposure is a 10 DN/s slope on a pedestal of 1e4 DN, so
+    # one float32 ulp of the cube (1e-3 DN) is 1e-5 of the slope signal
+    # per group: the maps are held to atol 1e-4 max|ref|, ten times the
+    # atol between two paths that round alike.  A pixel whose log(u)
+    # rounds to a bin edge takes the neighbouring bin's weights under the
+    # other route and moves by a share of its noise: up to 1e-3 of the
+    # pixels may lie outside (the share is reported).
+    parity = _compare_l2(trees["pallas-frame"], trees["pallas"],
+                         "slab route vs frame route", loose_bits=4 | 1,
+                         gate_sky=False, atol_frac=1e-4, outside_frac=1e-3)
+    print(f"slab vs frame IPC route: largest skycoefs difference "
+          f"{parity['skycoefs_max_abs_err']:.3e} of {parity['skycoefs_max_abs']:.3e} "
+          f"(reported, not gated)", flush=True)
+
+    res = {"phase": "main_path_likely", "ok": True, "card": card, "nside": nside,
+           "ngrp": NGRP, "device": str(device), "launches": launches,
+           "calibrateimage_s": seconds, "good_frac": float(good.mean()),
+           "slope_over_rate_median": ratio, "slope_rate_corr": corr,
+           "dumo_over_rate_median": dumo_ratio, **stats,
+           "blocked_vs_stream_bit_exact": True, "kernels_vs_plain_bit_exact": True,
+           "slab_vs_frame_route": parity}
+    del outs, out_p, trees, im, data, withsky
+
+    # ---- the warm core: the two slab routes and the plain route in turns ----
+    prep = {name: l1_to_l2.prepare_inputs(l1, cfgs[name], pack, device=device)
+            for name in ("pallas", "pallas-stream")}
+    cores = {name: l1_to_l2.make_core(p["plan"], p["cfg"], p["geom"])
+             for name, p in prep.items()}
+    runs = {"pallas": lambda: cores["pallas"](prep["pallas"]["arr"]),
+            "pallas-stream": lambda: cores["pallas-stream"](prep["pallas-stream"]["arr"]),
+            "plain": lambda: core_p(prep_p["arr"])}
+    times = {name: [] for name in runs}
+    for _ in range(2):
+        for name, fn in runs.items():
+            times[name].append(cuda_ms(fn, runs=5, warmup=1))
+    res["core_ms"] = times
+    # peak over one warm call, beside what is resident before it (the
+    # staged cal pack and three exposures' inputs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res["resident_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+    runs["pallas"]()
+    torch.cuda.synchronize()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["profile_kernels"] = profile(runs["pallas"])
+    res["profile_stream"] = profile(runs["pallas-stream"])
+    res["profile_plain"] = profile(runs["plain"])
+    emit(res)
+    return {"ipc_rev2_cube_blocked": launches["pallas"]["ipc_rev2_cube_blocked"],
+            "correct_cube_fused": launches["pallas"]["correct_cube_fused"],
+            "ipc_rev2_cube_stream": launches["pallas-stream"]["ipc_rev2_cube_stream"]}
 
 
 
 # --------------------------------------------------------------------------
-# Phase 4: sim -> L1
+# Phase 5: sim -> L1
 # --------------------------------------------------------------------------
 
 JUMP_DET = 4
@@ -890,7 +1182,12 @@ def main():
     d = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         caldir = make_caldir(d, NSIDE)
-        launches, backends = phase_main(card, torch.device("cuda"), d, caldir)
+        launches, backends, l1path, rate = phase_main(
+            card, torch.device("cuda"), d, caldir)
+        torch.cuda.empty_cache()
+        launches.update(phase_likely(card, torch.device("cuda"), d, caldir,
+                                     l1path, rate))
+        del rate
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         launches.update(phase_sim(card, torch.device("cuda"), d, caldir))

@@ -13,11 +13,18 @@ import re
 import torch
 import yaml
 
-#: backend names that select the hand-written CUDA kernel.  The JAX
-#: package's three Pallas IPC variants ('pallas' blocked slabs,
-#: 'pallas-stream' ring buffer, 'pallas-frame' raw frame) compute the
-#: same inverse; one CUDA frame kernel serves all three.
+#: backend names that select a hand-written CUDA kernel.  For the IPC
+#: inverse of L1 -> L2 the three Pallas names of the JAX package keep
+#: their meaning, each with its own kernel (:func:`resolve_ipc_backend`):
+#: 'pallas' the blocked slab kernel, 'pallas-stream' the streaming slab
+#: kernel, 'pallas-frame' the frame kernel.  Elsewhere (linearity, sky,
+#: the sim's forward IPC and pink noise) there is one kernel per key and
+#: every name selects it.
 KERNEL_NAMES = ("cuda", "pallas", "pallas-stream", "pallas-frame")
+
+#: ``IPC_BACKEND`` value -> the calibration core's IPC route
+_IPC_ROUTES = {"cuda": "cuda", "pallas-frame": "cuda", "pallas": "slab",
+               "pallas-stream": "slab-stream"}
 
 
 def resolve_device(device=None):
@@ -57,6 +64,27 @@ def resolve_backend(config, key, device):
             )
         return "cuda"
     raise ValueError(f"{key}: unknown backend {v!r}")
+
+
+def resolve_ipc_backend(config, device):
+    """Resolve ``IPC_BACKEND`` for the L1 -> L2 IPC inverse to the core's
+    route, as the JAX package routes it:
+
+    - ``'cuda'``: the frame kernel ('cuda', 'pallas-frame', and 'auto'
+      on a ``cuda`` device);
+    - ``'slab'``: the blocked slab kernel through its fused full-frame
+      form ('pallas');
+    - ``'slab-stream'``: the streaming slab kernel ('pallas-stream');
+    - ``'xla'``: the frame kernel's plain PyTorch version ('xla', and
+      'auto' elsewhere).
+
+    The two slab kernels sum the inverse in another order than the frame
+    kernel, so the routes differ in the last bits.  On a CPU device a
+    name that selects a kernel raises.
+    """
+    v = str(config.get("IPC_BACKEND", "auto")).lower()
+    resolved = resolve_backend(config, "IPC_BACKEND", device)
+    return _IPC_ROUTES.get(v, resolved)
 
 
 def resolve_contract_backend(config, device):

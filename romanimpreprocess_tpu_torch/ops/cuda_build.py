@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = ("ipc_frame.cu", "linearity.cu", "blockmed.cu", "contract.cu",
-           "ipc_fwd.cu", "pink.cu")
+           "ipc_fwd.cu", "pink.cu", "ipc_slab.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -97,6 +97,9 @@ def _declare(lib):
         ("contract_reads_launch", (P, P, P, I, I, L, I, P)),
         ("ipc_fwd_cube_launch", (P, P, P, P, I, I, P)),
         ("pink_frames_launch", (P,) * 11 + (I, I, I, P)),
+        ("ipc_slab_blocked_launch",
+         (P, L, I, P, L, I, P, L, I, P, I, I, I, P, P, I, I, P)),
+        ("ipc_slab_stream_launch", (P, L, I, P, L, I, P, L, I, P, I, I, I, P)),
     ):
         if hasattr(lib, name):
             fn = getattr(lib, name)

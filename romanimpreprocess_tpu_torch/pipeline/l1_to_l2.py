@@ -20,8 +20,12 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`..config.resolve_device`).  The ``IPC_BACKEND``,
 ``LIN_BACKEND`` and ``SKY_BACKEND`` keys choose between the
 hand-written CUDA kernels and their plain PyTorch versions
-(:func:`..config.resolve_backend`).  DQ planes are int32 bit patterns
-on the device and uint32 numpy arrays in the L2 tree.
+(:func:`..config.resolve_backend`; for the IPC inverse, which has a
+frame kernel and two slab kernels, :func:`..config.resolve_ipc_backend`).
+``romancal_ramp_fit: True`` swaps the ramp fit for the likelihood
+fitter (:mod:`..ops.likely`), which adds ``dumo`` and ``chisq`` to the
+product.  DQ planes are int32 bit patterns on the device and uint32
+numpy arrays in the L2 tree.
 """
 
 import argparse
@@ -33,12 +37,14 @@ import numpy as np
 import torch
 
 from .. import pars
-from ..config import load_config, resolve_backend, resolve_device
+from ..config import (load_config, resolve_backend, resolve_device,
+                      resolve_ipc_backend)
 from ..dqflags import group as gdq
 from ..dqflags import i32, pixel
 from ..io import asdf_lite, calfiles, fits_lite
-from ..ops import (ipc, ipc_cuda, linearity, linearity_cuda, mask, ramp,
-                   refsub, saturation, sky, wcsutils)
+from ..ops import (ipc, ipc_cuda, ipc_slab, likely, linearity,
+                   linearity_cuda, mask, ramp, refsub, saturation, sky,
+                   wcsutils)
 from ..ops.sky import full_fp32
 from ..utils import hostcache, typefix
 from ..utils.processlog import ProcessLog
@@ -96,6 +102,14 @@ PRODUCT_OUTPUTS = (
 )
 
 WFI18_DEFAULT_TAUS = (150.0, 1300.0)
+
+#: ``th`` of the pre-padded slab kernel planes the slab IPC routes stage
+#: (the reference's choice; here it only names the buffer's geometry)
+SLAB_TH = 32
+#: the core's IPC routes that read ``arr["ipc_kernel_padded"]``: the two
+#: slab kernels and their plain twin ('slab-plain' is set only by tests
+#: and checks on ``prep["cfg"]["ipc"]``; no config key selects it)
+SLAB_ROUTES = ("slab", "slab-stream", "slab-plain")
 
 
 def _wfi18_row_basis(nside, taus=WFI18_DEFAULT_TAUS):
@@ -235,22 +249,51 @@ def make_core(plan, cfg, geom):
             pdq = pdq | dq_lin
 
         # ---- IPC deconvolution ----
-        stage("ipc")
-        # order-2 inverse on the raw frame, border passthrough; the
+        # order-2 inverse on the active region, border passthrough; the
         # dark-slope and clipped-flat deconvolutions are cal-only work,
         # precomputed once per cal pack (ipc_precal)
-        if has_ipc:
-            ipc_fn = (ipc_cuda.ipc_rev2_frame if cfg["ipc"] == "cuda"
+        route = cfg["ipc"]
+        if has_ipc and route in SLAB_ROUTES:
+            # the slab routes: y = active * gain, (3y - 3Ky) + K Ky,
+            # / gain, merged into the frame
+            stage("ipc_slab")
+            gain_act = arr["gain"][act]
+            kp = arr["ipc_kernel_padded"]
+            if route == "slab":
+                data = ipc_slab.correct_cube_fused(
+                    data.contiguous(), kp, gain=gain_act, nborder=nb,
+                    th=SLAB_TH)
+            elif route == "slab-stream":
+                corr = ipc_slab.ipc_rev2_cube_stream(
+                    data[:, act[0], act[1]].contiguous(), kp, gain=gain_act,
+                    th=SLAB_TH)
+                data = data.clone()
+                data[:, act[0], act[1]] = corr
+                del corr
+            else:
+                data = ipc_slab.correct_cube_plain(
+                    data, kp, gain=gain_act, nborder=nb, th=SLAB_TH)
+        elif has_ipc:
+            stage("ipc")
+            ipc_fn = (ipc_cuda.ipc_rev2_frame if route == "cuda"
                       else ipc_cuda.ipc_rev2_frame_plain)
             data = ipc_fn(data.contiguous(), arr["ipc_kernel_frame"],
                           arr["gain"], nborder=nb)
 
         # ---- ramp fit + jump detection ----
-        stage("ramp_fit")
-        slope, ser, sep, rdq, pdq = ramp.ramp_fit(
-            data, rdq, pdq, plan, arr["gain"], arr["read_sigma"],
-            nborder=nborder,
-        )
+        dumo = chisq = None
+        if cfg["likelihood_fit"]:
+            stage("ramp_fit_likely")
+            slope, ser, sep, rdq, pdq, dumo, chisq = likely.ramp_fit_likely(
+                data, rdq, pdq, plan, arr["gain"], arr["read_sigma"],
+                nborder=nborder,
+            )
+        else:
+            stage("ramp_fit")
+            slope, ser, sep, rdq, pdq = ramp.ramp_fit(
+                data, rdq, pdq, plan, arr["gain"], arr["read_sigma"],
+                nborder=nborder,
+            )
 
         # ---- dark current subtraction (IPC-corrected dark slope) ----
         stage("dark_flat")
@@ -324,8 +367,16 @@ def make_core(plan, cfg, geom):
             "skycoefs": skycoefs,
             "endslice": endslice,
         }
+        if dumo is not None:
+            # dumo is slope-like -> flat-field it (gen_cal_image.py:671)
+            out["dumo"] = dumo / flat
+            out["chisq"] = chisq
         stage.close()
-        keys = cfg.get("outputs") or PRODUCT_OUTPUTS
+        # the default is the product contract: PRODUCT_OUTPUTS plus the
+        # likelihood diagnostics
+        keys = cfg.get("outputs") or (
+            PRODUCT_OUTPUTS + (("dumo", "chisq") if dumo is not None else ())
+        )
         return {k: out[k] for k in keys}
 
     return core
@@ -447,7 +498,8 @@ def calibrateimage(config, verbose=False, return_arrays=False, device=None):
     Config keys follow the reference (``docs/L1_to_L2_README.rst``):
     IN, OUT, CALDIR, FITSWCS, RAMP_OPT_PARS, JUMP_DETECT_PARS, SKYORDER,
     EXCLUDE_FIRST, SATURATION_BACKUP, SLICEOUT, FITSOUT,
-    correct_wfi18_transient, and the ``*_BACKEND`` kernel choices.
+    correct_wfi18_transient, romancal_ramp_fit (with REJECTION_THRESHOLD
+    and JUMP_KW), and the ``*_BACKEND`` kernel choices.
     Runs on ``device`` (default ``cuda``; raises without a GPU).
     """
     device = resolve_device(device)
@@ -575,17 +627,37 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         "RAMP_OPT_PARS", {"slope": 0.4, "gain": 1.8, "sigma_read": 6.5}
     )
     u_ = float(uopt["slope"]) / float(uopt["gain"]) / float(uopt["sigma_read"]) ** 2
-    if config.get("romancal_ramp_fit", False):
-        raise NotImplementedError(
-            "romancal_ramp_fit (the likelihood fitter, ops/likely) is not "
-            "ported yet: see ROADMAP.md, Queue 1"
+    likelihood_fit = bool(config.get("romancal_ramp_fit", False))
+    if likelihood_fit:
+        # JUMP_KW (reference gen_cal_image.py:428 forwards it to the
+        # romancal likelihood fitter): recognized keys map onto the
+        # internal fitter's knobs; unrecognized ones are logged and
+        # ignored rather than failing the run
+        jump_kw = dict(config.get("JUMP_KW") or {})
+        rej = float(jump_kw.pop(
+            "rejection_threshold", config.get("REJECTION_THRESHOLD", 4.5)
+        ))
+        plan_kw = {
+            k: jump_kw.pop(k)
+            for k in ("nu", "u_min", "u_max") if k in jump_kw
+        }
+        plan = likely.build_likely_plan(
+            meta, exclude_first, rejection_threshold=rej, **plan_kw
         )
-    plan = ramp.build_plan(
-        meta, u_, exclude_first, config.get("JUMP_DETECT_PARS")
-    )
-    mylog.append(f"\n\nRamp fit optimized for u = {u_:11.5E} s**-1\n")
-    mylog.append("weights = {}\n".format(plan.W[-1]))
-    weights_out = plan.W[-1]
+        if jump_kw:
+            mylog.append(
+                "JUMP_KW keys ignored by the internal likelihood "
+                f"fitter: {sorted(jump_kw)}\n"
+            )
+        mylog.append("likelihood (adaptive-weight) ramp fit\n")
+        weights_out = plan.W[plan.nu // 2, -1]
+    else:
+        plan = ramp.build_plan(
+            meta, u_, exclude_first, config.get("JUMP_DETECT_PARS")
+        )
+        mylog.append(f"\n\nRamp fit optimized for u = {u_:11.5E} s**-1\n")
+        mylog.append("weights = {}\n".format(plan.W[-1]))
+        weights_out = plan.W[-1]
 
     # ---- static config ----
     use_amp33 = pack.amp33_valid and "amp33" in l1
@@ -618,14 +690,17 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         exclude_first=exclude_first,
         backup=backup,
         use_amp33=bool(use_amp33),
+        likelihood_fit=likelihood_fit,
         has_biascorr="biascorr" in caldir,
         has_dark_decay=has_dark_decay,
         wfi18=wfi18,
         first_is_reset=(read_pattern[0] == [0]),
         has_ipc="ipc4d" in caldir,
         # 'cuda' = the hand-written kernel, 'xla' = its plain version;
-        # 'auto' is the kernel on a CUDA device
-        ipc=resolve_backend(config, "IPC_BACKEND", device),
+        # 'auto' is the kernel on a CUDA device.  ipc: 'cuda' / 'xla'
+        # (the frame kernel and its twin), 'slab' / 'slab-stream' (the
+        # blocked and streaming slab kernels)
+        ipc=resolve_ipc_backend(config, device),
         lin=resolve_backend(config, "LIN_BACKEND", device),
         med=resolve_backend(config, "SKY_BACKEND", device),
         has_dark_dq=pack.dark_dq is not None,
@@ -696,9 +771,15 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         arr["dark_slope_ipc"], arr["flat_ipc"] = ipc_precal(
             pack.flat, pack.dark_slope, pack.gain, pack.ipc_kernel, nb, device
         )
-        arr["ipc_kernel_frame"] = cal(
-            ipc_cuda.kernel_planes_frame(pack.ipc_kernel, nside, nb)
-        )
+        if cfg["ipc"] in SLAB_ROUTES:
+            # padded once per cal pack (id-keyed), staged once per device
+            arr["ipc_kernel_padded"] = cal(
+                ipc_slab.kernel_planes_padded(pack.ipc_kernel, th=SLAB_TH)
+            )
+        else:
+            arr["ipc_kernel_frame"] = cal(
+                ipc_cuda.kernel_planes_frame(pack.ipc_kernel, nside, nb)
+            )
 
     mylog.append("Saturation check complete\n")
     mylog.append("Linearity correction complete\n")
@@ -776,6 +857,9 @@ def package_tree(out, prep, l1, config):
         "data_withsky": np.asarray(out["slope_withsky"][act, act], np.float32),
     }
     oututils.add_in_ref_data(im2, l1, pdq, nside, nb)
+    if "dumo" in out:
+        im2["dumo"] = np.asarray(out["dumo"][act, act], np.float16)
+        im2["chisq"] = np.asarray(out["chisq"][act, act], np.float16)
 
     processinfo = {
         "medsky": float(out["medsky"]),

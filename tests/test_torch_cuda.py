@@ -9,8 +9,9 @@ run it without the conftest:
 
 Tolerances: the kernels repeat their plain twins' rounded steps in the
 same order (no FMA contraction), so linearity (cube and DQ), the block
-nanmedian, the read contraction, the forward IPC and the L1 -> L2
-product are held bit for bit; the IPC inverse is held to 1e-5 of the
+nanmedian, the read contraction, the forward IPC, the three slab IPC
+inverses (against the twin and against each other) and the L1 -> L2
+product are held bit for bit; the frame IPC inverse is held to 1e-5 of the
 largest value, the JAX package's own gate for its Pallas kernel.  The
 pink transform shares its twin's cast points and sums in another order:
 difference std < 1e-2 and max < 5e-2 of the frame std (the JAX
@@ -27,8 +28,9 @@ from romanimpreprocess_tpu_torch import synth
 from romanimpreprocess_tpu_torch.dqflags import i32, pixel
 from romanimpreprocess_tpu_torch.io import asdf_lite
 from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc, ipc_cuda,
-                                             linearity, linearity_cuda,
-                                             median_cuda, pink, pink_cuda, sky)
+                                             ipc_slab, linearity,
+                                             linearity_cuda, median_cuda, pink,
+                                             pink_cuda, sky)
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
 
 torch.set_num_threads(1)
@@ -180,6 +182,85 @@ def test_ipc_fwd_cuda_bit_identical(cuda_device, ngrp, na):
         torch.cuda.synchronize()
         assert ipc_cuda.fwd_launches == n0 + 1
         assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ngrp,na,th,with_gain,padded", [
+    (3, 96, 16, True, True), (1, 100, 8, False, False), (2, 100, 16, True, False),
+    (2, 131, 32, False, True)])
+def test_ipc_slab_cuda_bit_identical(cuda_device, ngrp, na, th, with_gain, padded):
+    rng = np.random.RandomState(na + ngrp)
+    nb, nside = 4, na + 8
+    K = rng.uniform(0, 0.02, (3, 3, na, na)).astype(np.float32)
+    K[1, 1] = 1 - K.sum(axis=(0, 1)) + K[1, 1]
+    kern = ipc_slab.kernel_planes_padded(K, th=th) if padded else K
+    kern = torch.from_numpy(kern).to(cuda_device)
+    data = torch.from_numpy(rng.uniform(0, 1000, (ngrp, nside, nside))
+                            .astype(np.float32)).to(cuda_device)
+    gain = torch.from_numpy(rng.uniform(1.4, 1.6, (nside, nside))
+                            .astype(np.float32)).to(cuda_device)
+    # a row-pitched view of the full-frame gain, as the core passes it
+    g = gain[nb:-nb, nb:-nb] if with_gain else None
+    cube = data[:, nb:-nb, nb:-nb].contiguous()
+    n0 = (ipc_slab.blocked_launches, ipc_slab.stream_launches, ipc_slab.fused_launches)
+    blocked = ipc_slab.ipc_rev2_cube_blocked(cube, kern, g, th=th)
+    stream = ipc_slab.ipc_rev2_cube_stream(cube, kern, g, th=th)
+    fused = ipc_slab.correct_cube_fused(data, kern, g, nborder=nb, th=th)
+    torch.cuda.synchronize()
+    assert (ipc_slab.blocked_launches, ipc_slab.stream_launches,
+            ipc_slab.fused_launches) == (n0[0] + 2, n0[1] + 1, n0[2] + 1)
+    ref = ipc_slab.ipc_rev2_plain(
+        cube, torch.from_numpy(K).to(cuda_device).reshape(9, na, na), g)
+    assert torch.equal(blocked, ref) and torch.equal(stream, ref)
+    assert torch.equal(fused, ipc_slab.correct_cube_plain(data, kern, g, nborder=nb, th=th))
+    assert torch.equal(fused[:, nb:-nb, nb:-nb], blocked)
+    assert torch.equal(fused[:, :nb], data[:, :nb])
+    assert torch.equal(fused[:, :, -nb:], data[:, :, -nb:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ipc_slab.ipc_rev2_cube_blocked(data[:, nb:-nb, nb:-nb], kern, g, th=th)
+    if padded:
+        with pytest.raises(ValueError, match="slab geometry"):
+            ipc_slab.ipc_rev2_cube_stream(cube, kern, g, th=2 * th)
+
+
+@pytest.mark.cuda
+def test_calibrateimage_likelihood_slab_routes_match(cuda_device, tmp_path):
+    d = str(tmp_path)
+    rp = synth.READ_PATTERN_DEFAULT
+    caldir = synth.make_cal_files(d + "/cal", rp, nside=64, seed=5)
+    cal = synth.synth_cal_arrays(64, rp, seed=5)
+    data = synth.synth_l1_cube(cal, rp, rate_dn_s=10.0, nborder=4)
+    synth.write_l1_file(d + "/L1.asdf", data, rp,
+                        amp33=synth.synth_amp33(64, len(rp), 4))
+    base = {"IN": d + "/L1.asdf", "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True,
+            "romancal_ramp_fit": True}
+    counts = lambda: (ipc_cuda.launches, ipc_slab.blocked_launches,
+                      ipc_slab.fused_launches, ipc_slab.stream_launches)
+    n0 = counts()
+    a = l1_to_l2.calibrateimage(dict(base, OUT=d + "/a.asdf", IPC_BACKEND="pallas"),
+                                device=cuda_device, return_arrays=True)
+    assert counts() == (n0[0], n0[1] + 1, n0[2] + 1, n0[3])
+    b = l1_to_l2.calibrateimage(dict(base, OUT=d + "/b.asdf", IPC_BACKEND="pallas-stream"),
+                                device=cuda_device, return_arrays=True)
+    assert counts() == (n0[0], n0[1] + 1, n0[2] + 1, n0[3] + 1)
+    assert set(a) == set(l1_to_l2.PRODUCT_OUTPUTS) | {"dumo", "chisq"}
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    # the slab twin through the same core, LIN / SKY plain
+    l1 = asdf_lite.open(d + "/L1.asdf")["roman"]
+    from romanimpreprocess_tpu_torch.io import calfiles
+    pack = calfiles.load_caldir_cached(caldir)
+    prep = l1_to_l2.prepare_inputs(
+        l1, dict(base, IPC_BACKEND="pallas", LIN_BACKEND="xla", SKY_BACKEND="xla"),
+        pack, device=cuda_device)
+    prep["cfg"]["ipc"] = "slab-plain"
+    p = l1_to_l2.to_host(l1_to_l2.make_core(prep["plan"], prep["cfg"],
+                                            prep["geom"])(prep["arr"]))
+    assert counts() == (n0[0], n0[1] + 1, n0[2] + 1, n0[3] + 1)
+    for k in a:
+        np.testing.assert_array_equal(a[k], p[k], err_msg=k)
+    im = asdf_lite.open(d + "/a.asdf")["roman"]
+    assert im["dumo"].dtype == np.float16 and im["chisq"].dtype == np.float16
 
 
 @pytest.mark.cuda

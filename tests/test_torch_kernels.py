@@ -15,6 +15,15 @@ numpy inputs:
   package's own gate against einsum; both sum in read order);
 - forward IPC (``ipc_fwd_cube_blocked``): 1e-6 of the peak (nine
   products summed in another order), with and without gain;
+- slab IPC inverses (``ipc_rev2_cube_blocked``, ``ipc_rev2_cube_stream``,
+  ``correct_cube_fused``): the twin takes the same float32 steps in the
+  same order (taps 0..8, ``(3y - 3a) + b``), held to 1e-6 of max|ref|.
+  Measured: up to 6.1e-7, not equal bits: XLA's CPU compiler contracts
+  the multiply-adds into FMAs (a float64 emulation of that contraction
+  moves the share of differing values from 70% to 7%); the CUDA kernel
+  and the twin, which both round every step, agree bit for bit on the
+  card.  Border equal to the input exactly; the padded-layout helpers
+  equal to the JAX package's exactly;
 - pink transform (``pink_frames_fused``, and ``pink.pink_frames``): the
   test draws the white spectrum with the reference's key and hands it to
   the port.  Same cast points, another order of sums, so the JAX
@@ -43,9 +52,9 @@ from romanimpreprocess_tpu.ops import (contract_pallas, ipc_pallas,
 from romanimpreprocess_tpu.ops import linearity as jlinearity
 from romanimpreprocess_tpu.ops import pink as jpink
 from romanimpreprocess_tpu_torch.dqflags import i32, pixel
-from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc_cuda, linearity,
-                                             linearity_cuda, median_cuda, pink,
-                                             pink_cuda, sky)
+from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc_cuda, ipc_slab,
+                                             linearity, linearity_cuda,
+                                             median_cuda, pink, pink_cuda, sky)
 
 torch.set_num_threads(1)
 
@@ -98,6 +107,126 @@ def test_ipc_frame_planes_match_jax_helper():
 def test_ipc_bytes_bound_at_full_size():
     # 4096^2 x 6 groups: cube in + out, 9 planes, gain
     assert ipc_cuda.bytes_moved(6, 4096) == 4 * 4096 * 4096 * 22
+
+
+# --------------------------------------------------------------------------
+# 4, 5, 6: slab-layout IPC inverses
+# --------------------------------------------------------------------------
+
+def _slab_case(na, G, with_gain, seed=0):
+    rng = np.random.RandomState(seed + na + G)
+    cube = rng.uniform(0, 1000, (G, na, na)).astype(np.float32)
+    K = rng.uniform(0, 0.02, (3, 3, na, na)).astype(np.float32)
+    K[1, 1] = 1 - K.sum(axis=(0, 1)) + K[1, 1]
+    gain = rng.uniform(1.4, 1.6, (na, na)).astype(np.float32) if with_gain else None
+    return cube, K, gain
+
+
+def _opt(a, conv):
+    return None if a is None else conv(a)
+
+
+SLAB_FNS = {
+    "blocked": (ipc_pallas.ipc_rev2_cube_blocked, ipc_slab.ipc_rev2_cube_blocked),
+    "stream": (ipc_pallas.ipc_rev2_cube_stream, ipc_slab.ipc_rev2_cube_stream),
+}
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("with_gain", [False, True])
+@pytest.mark.parametrize("na,th,G", [(96, 16, 2), (100, 8, 3), (100, 16, 1)])
+@pytest.mark.parametrize("which", list(SLAB_FNS))
+def test_ipc_slab_matches_pallas(which, na, th, G, with_gain, padded):
+    jfn, tfn = SLAB_FNS[which]
+    cube, K, gain = _slab_case(na, G, with_gain)
+    kj = ipc_pallas.kernel_planes_padded(K, th=th) if padded else K
+    kt = ipc_slab.kernel_planes_padded(K, th=th) if padded else K
+    want = np.asarray(jfn(jnp.asarray(cube), jnp.asarray(kj),
+                          _opt(gain, jnp.asarray), th=th, interpret=True))
+    got = tfn(torch.from_numpy(cube), torch.from_numpy(kt),
+              _opt(gain, torch.from_numpy), th=th).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("with_gain", [False, True])
+@pytest.mark.parametrize("nside,nb,th,G", [(104, 4, 8, 2), (108, 4, 16, 3),
+                                           (100, 0, 16, 1)])
+def test_correct_cube_fused_matches_pallas(nside, nb, th, G, with_gain, padded):
+    na = nside - 2 * nb
+    _, K, gain = _slab_case(na, G, with_gain)
+    data = np.random.RandomState(nside).uniform(
+        0, 1000, (G, nside, nside)).astype(np.float32)
+    kj = ipc_pallas.kernel_planes_padded(K, th=th) if padded else K
+    kt = ipc_slab.kernel_planes_padded(K, th=th) if padded else K
+    want = np.asarray(ipc_pallas.correct_cube_fused(
+        jnp.asarray(data), jnp.asarray(kj), gain=_opt(gain, jnp.asarray),
+        nborder=nb, th=th, interpret=True))
+    got = ipc_slab.correct_cube_fused(
+        torch.from_numpy(data), torch.from_numpy(kt),
+        gain=_opt(gain, torch.from_numpy), nborder=nb, th=th).numpy()
+    border = np.ones((nside, nside), bool)
+    border[nb : nside - nb, nb : nside - nb] = False
+    np.testing.assert_array_equal(got[:, border], data[:, border])
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    # nborder from the raw kernel's shape; the pre-padded form needs it
+    auto = ipc_slab.correct_cube_fused(torch.from_numpy(data), torch.from_numpy(K),
+                                       gain=_opt(gain, torch.from_numpy), th=th)
+    np.testing.assert_array_equal(auto.numpy(), got)
+    kp = torch.from_numpy(ipc_slab.kernel_planes_padded(K, th=th))
+    with pytest.raises(ValueError, match="nborder"):
+        ipc_slab.correct_cube_fused(torch.from_numpy(data), kp, th=th)
+
+
+def test_ipc_slab_twin_is_one_function_for_all_entries():
+    cube, K, gain = _slab_case(100, 2, True)
+    c, k, g = torch.from_numpy(cube), torch.from_numpy(K), torch.from_numpy(gain)
+    a = ipc_slab.ipc_rev2_cube_blocked(c, k, g, th=16)
+    kp = torch.from_numpy(ipc_slab.kernel_planes_padded(K, th=8))
+    b = ipc_slab.ipc_rev2_cube_stream(c, kp, g, th=8)
+    assert torch.equal(a, b)
+    assert torch.equal(a, ipc_slab.ipc_rev2_plain(c, k.reshape(9, 100, 100), g))
+    # not the frame route's order of summation (centre tap first)
+    from romanimpreprocess_tpu_torch.ops import ipc
+    other = ipc.ipc_rev(c, k, order=2, gain=g)
+    assert not torch.equal(a, other)
+    assert (a - other).abs().max() <= 1e-5 * other.abs().max()
+
+
+@pytest.mark.parametrize("na,th", [(96, 16), (100, 8), (4088, 32)])
+def test_ipc_slab_padded_layout_matches_jax_helpers(na, th):
+    assert ipc_slab._pad_geom(na, th) == ipc_pallas._pad_geom(na, th)
+    assert ipc_slab.TAPS == ipc_pallas.TAPS
+    if na > 200:
+        assert ipc_slab._pad_geom(na, th) == (4096, 4096, 128, 4160)
+        return
+    _, K, _ = _slab_case(na, 1, False)
+    got = ipc_slab.kernel_planes_padded(K, th=th)
+    np.testing.assert_array_equal(got, ipc_pallas.kernel_planes_padded(K, th=th))
+    assert got.dtype == np.float32
+    assert ipc_slab.kernel_planes_padded(K, th=th) is got  # cached per kernel
+    np.testing.assert_array_equal(got[:, th : th + na, 2 : 2 + na],
+                                  K.reshape(9, na, na))
+
+
+@pytest.mark.parametrize("fn", [ipc_slab.ipc_rev2_cube_blocked,
+                                ipc_slab.ipc_rev2_cube_stream])
+def test_ipc_slab_prepadded_th_mismatch_raises(fn):
+    cube, K, _ = _slab_case(96, 1, False)
+    kp = torch.from_numpy(ipc_slab.kernel_planes_padded(K, th=8))
+    with pytest.raises(ValueError, match="slab geometry"):
+        fn(torch.from_numpy(cube), kp, th=16)
+    with pytest.raises(ValueError, match="expected shape"):
+        fn(torch.from_numpy(cube), torch.from_numpy(K[:, :, :90, :90].copy()), th=16)
+
+
+def test_ipc_slab_bytes_bound_at_full_size():
+    # 6 groups of 4088^2: cube in + out, 9 planes, gain
+    assert ipc_slab.bytes_moved(6, 4088) == 4 * 4088 * 4088 * 22
+    assert ipc_slab.bytes_moved(6, 4088, has_gain=False) == 4 * 4088 * 4088 * 21
+    # the fused form moves the whole frame in and out
+    assert ipc_slab.fused_bytes_moved(6, 4096, 4) == 4 * (12 * 4096**2 + 10 * 4088**2)
 
 
 # --------------------------------------------------------------------------
@@ -217,6 +346,11 @@ def test_wrappers_raise_on_non_cuda_non_cpu_tensors():
                                 torch.zeros((8, 8), device="meta"))
     with pytest.raises(ValueError):
         median_cuda.block_nanmedian_fused(torch.zeros((8, 8), device="meta"), 2)
+    k4 = torch.zeros((3, 3, 8, 8), device="meta")
+    for fn in (ipc_slab.ipc_rev2_cube_blocked, ipc_slab.ipc_rev2_cube_stream,
+               ipc_slab.correct_cube_fused):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(meta, k4)
     with pytest.raises(ValueError):
         contract_cuda.contract_reads(torch.zeros((2, 3), device="meta"),
                                      torch.zeros((3, 8, 8), device="meta"))

@@ -11,7 +11,22 @@ plain path) and the L2 trees are compared, per variant:
   rtol 1e-5 and atol 1e-5 max|ref| (float32 sums in another order);
 - ``skycoefs`` and ``medsky``: rtol 1e-4 (a small least-squares solve
   on block medians);
-- ``endslice``: exact.
+- ``endslice``: exact;
+- ``dumo`` and ``chisq`` (the likelihood variants, ``romancal_ramp_fit:
+  True``): float16 in both trees and compared after the cast: within
+  one float16 ulp plus the maps' atol (1e-5 max|ref|) on at least 99.9%
+  of the pixels.  The atol is needed because both are differences of
+  nearly equal float32 numbers (``dumo`` of two resultants, ``chisq`` of
+  two quadratic forms), so near zero their float32 error exceeds a
+  float16 ulp; the share allows for a pixel on a u-bin edge of the
+  adaptive weights.  Measured on this fixture: ``dumo`` 0 pixels
+  outside, ``chisq`` 7.6e-4 of the pixels (stars, where the chi-square
+  is a small difference of two large forms).
+
+One more test runs the port's core with the slab IPC route's plain twin
+(``cfg["ipc"] = "slab-plain"``: ``(3y - 3Ky) + K Ky`` with the taps in
+order) against the default route (the Neumann recursion, centre tap
+first) and holds the post-IPC science maps to the same tolerances.
 """
 
 import numpy as np
@@ -22,7 +37,8 @@ from romanimpreprocess_tpu.io import asdf_lite as jasdf
 from romanimpreprocess_tpu.pipeline import l1_to_l2 as jl1_to_l2
 from romanimpreprocess_tpu.pipeline import sim_to_l1
 from romanimpreprocess_tpu.synth import make_cal_files, make_scene_file
-from romanimpreprocess_tpu_torch.io import asdf_lite
+from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
+from romanimpreprocess_tpu_torch.ops import ipc_slab
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
 
 torch.set_num_threads(1)
@@ -37,7 +53,15 @@ VARIANTS = {
     "extract_ref": (True, {"EXCLUDE_FIRST": False}),
     "skyorder_off": (False, {"SKYORDER": -1}),
     "skyorder_1_fitsout": (False, {"SKYORDER": 1, "FITSOUT": True}),
+    "likely": (False, {"romancal_ramp_fit": True}),
+    "likely_thresh": (False, {"romancal_ramp_fit": True,
+                              "REJECTION_THRESHOLD": 5.0,
+                              "correct_wfi18_transient": True}),
+    "likely_kw": (False, {"romancal_ramp_fit": True,
+                          "JUMP_KW": {"rejection_threshold": 1e4,
+                                      "not_a_real_key": 1}}),
 }
+LIKELY = [k for k in VARIANTS if k.startswith("likely")]
 
 
 def _reads():
@@ -125,6 +149,66 @@ def test_endslice_and_metadata(pairs, name):
 
         hdus = fits_lite.open_fits(cfg["OUT"][:-5] + "_asdf_to.fits")
         np.testing.assert_array_equal(hdus[0].data, got["roman"]["data"])
+
+
+@pytest.mark.parametrize("name", LIKELY)
+@pytest.mark.parametrize("key", ["dumo", "chisq"])
+def test_likelihood_diagnostics(pairs, name, key):
+    ref, got, _ = pairs[name]
+    r, g = np.asarray(ref["roman"][key]), np.asarray(got["roman"][key])
+    assert g.dtype == r.dtype == np.float16 and g.shape == r.shape == (N - 8, N - 8)
+    assert np.isfinite(g.astype(np.float32)).all()
+    ulp = np.spacing(np.maximum(np.abs(r), np.abs(g))).astype(np.float32)
+    r32, g32 = r.astype(np.float32), g.astype(np.float32)
+    ok = np.abs(g32 - r32) <= ulp + 1e-5 * np.abs(r32).max()
+    assert ok.mean() >= 0.999, (key, 1 - ok.mean())
+    assert (r != 0).mean() > 0.9
+
+
+def test_likelihood_variants_differ_as_configured(pairs):
+    jump = lambda name: int((np.asarray(pairs[name][1]["roman"]["dq"]) & JUMP_DET != 0).sum())
+    # a huge rejection threshold inside JUMP_KW suppresses jump flags
+    assert jump("likely_kw") < jump("likely_thresh") <= jump("likely")
+    log = str(pairs["likely_kw"][1]["processinfo"]["log"])
+    assert "not_a_real_key" in log and "likelihood (adaptive-weight) ramp fit" in log
+    assert pairs["likely_thresh"][1]["roman"]["meta"]["cal_step"]["wfi18_transient"] == "N/A"
+    # the classic fit's tree carries the schema's all-zero placeholders
+    assert not np.asarray(pairs["base"][1]["roman"]["dumo"]).any()
+
+
+def test_slab_ipc_route_matches_default_route(pairs):
+    """The slab route's twin through the whole core, against the default
+    route (the frame kernel's twin): another order of summation, the
+    same maps to the slice tolerances."""
+    _, _, cfg = pairs["likely"]
+    pack = calfiles.load_caldir_cached(cfg["CALDIR"])
+    l1 = asdf_lite.open(cfg["IN"])["roman"]
+    area = l1_to_l2.area_factor_from_config(cfg, pack.nside)
+    keys = l1_to_l2.PRODUCT_OUTPUTS + ("dumo", "chisq")
+    outs = {}
+    for route in ("xla", "slab-plain", "slab"):
+        prep = l1_to_l2.prepare_inputs(l1, cfg, pack, area, device="cpu")
+        assert prep["cfg"]["ipc"] == "xla" and "ipc_kernel_padded" not in prep["arr"]
+        prep["cfg"]["ipc"] = route
+        prep["arr"]["ipc_kernel_padded"] = l1_to_l2.stage(
+            ipc_slab.kernel_planes_padded(pack.ipc_kernel, th=l1_to_l2.SLAB_TH), "cpu")
+        core = l1_to_l2.make_core(prep["plan"], prep["cfg"], prep["geom"])
+        outs[route] = l1_to_l2.to_host(core(prep["arr"]))
+        assert set(outs[route]) == set(keys)
+    ref, got = outs["xla"], outs["slab-plain"]
+    jump_diff = (ref["pdq"] ^ got["pdq"]) != 0
+    assert not ((ref["pdq"] ^ got["pdq"]) & ~np.uint32(JUMP_DET)).any()
+    assert jump_diff.mean() <= 1e-4
+    for k in ("slope", "slope_withsky", "slope_err_read", "slope_err_poisson", "dumo"):
+        r, g = ref[k], got[k]
+        ok = np.abs(g - r) <= 1e-5 * np.abs(r) + 1e-5 * np.abs(r).max()
+        assert (ok | jump_diff).all(), (k, np.abs(g - r).max())
+    assert not np.array_equal(ref["slope"], got["slope"])  # the routes do differ
+    np.testing.assert_allclose(got["skycoefs"], ref["skycoefs"], rtol=1e-4,
+                               atol=1e-4 * np.abs(ref["skycoefs"]).max())
+    # on a CPU tensor the kernel route's wrapper takes the same twin
+    for k in keys:
+        np.testing.assert_array_equal(outs["slab"][k], got[k], err_msg=k)
 
 
 def test_return_arrays_and_core_outputs(pairs, tmp_path):

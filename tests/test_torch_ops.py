@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from romanimpreprocess_tpu.ops import flat as jflat
 from romanimpreprocess_tpu.ops import ipc as jipc
 from romanimpreprocess_tpu.ops import legendre as jlegendre
 from romanimpreprocess_tpu.ops import mask as jmask
@@ -19,8 +20,10 @@ from romanimpreprocess_tpu.ops import refsub as jrefsub
 from romanimpreprocess_tpu.ops import saturation as jsaturation
 from romanimpreprocess_tpu.ops import sky as jsky
 from romanimpreprocess_tpu_torch.dqflags import pixel
-from romanimpreprocess_tpu_torch.ops import (ipc, legendre, mask, ramp, refsub,
-                                             saturation, sky)
+from romanimpreprocess_tpu.utils import bitutils as jbitutils
+from romanimpreprocess_tpu_torch.ops import (flat, ipc, legendre, mask, ramp,
+                                             refsub, saturation, sky)
+from romanimpreprocess_tpu_torch.utils import bitutils
 
 torch.set_num_threads(1)
 
@@ -292,3 +295,47 @@ def test_block_nanmedian_plain_matches_jax_bisection():
     want = np.asarray(jsky.block_nanmedian(jnp.asarray(a), 8))
     got = sky.block_nanmedian(T(a), 8).numpy()
     assert ((got == want) | (np.isnan(got) & np.isnan(want))).all()
+
+
+# --------------------------------------------------------------------------
+# flat, bitutils
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("deconvolve,with_pdq", [(True, True), (True, False),
+                                                 (False, True)])
+def test_get_flat_matches_jax(deconvolve, with_pdq):
+    rng = np.random.RandomState(12)
+    n, nb = 48, 4
+    na = n - 2 * nb
+    f = rng.uniform(0.8, 1.2, (n, n)).astype(np.float32)
+    f[10, 10], f[11, 30], f[0, 0] = 0.01, 25.0, 50.0  # out of range; border ignored
+    gain = rng.uniform(1.4, 1.6, (n, n)).astype(np.float32)
+    gain[20, 20] = 0.05  # NO_GAIN_VALUE, clipped to 0.1
+    K = rng.uniform(0, 0.02, (3, 3, na, na)).astype(np.float32)
+    K[1, 1] = 1 - K.sum(axis=(0, 1)) + K[1, 1]
+    pdq = (rng.rand(n, n) < 0.05).astype(np.uint32) * np.uint32(pixel.DEAD)
+    want, want_dq = jflat.get_flat(
+        jnp.asarray(f), jnp.asarray(gain), jnp.asarray(K), nborder=nb,
+        pdq=jnp.asarray(pdq) if with_pdq else None, ipc_deconvolve=deconvolve)
+    got, got_dq = flat.get_flat(
+        T(f), T(gain), T(K), nborder=nb, pdq=_dq(pdq) if with_pdq else None,
+        ipc_deconvolve=deconvolve)
+    # the IPC inverse's nine products are summed in another order
+    _close(got, want, 1e-6, 1e-6)
+    assert got[0, 0] == 1.0 and got.dtype == torch.float32
+    if with_pdq:
+        np.testing.assert_array_equal(_u32(got_dq), np.asarray(want_dq))
+        assert _u32(got_dq)[10, 10] & pixel.NO_FLAT_FIELD
+        assert bool(_u32(got_dq)[20, 20] & pixel.NO_GAIN_VALUE) == deconvolve
+    else:
+        assert got_dq is None and want_dq is None
+
+
+def test_convert_uint32_to_bits_matches_reference():
+    rng = np.random.RandomState(5)
+    arr = rng.randint(0, 2**32, (7, 9), dtype=np.uint64).astype(np.uint32)
+    got = bitutils.convert_uint32_to_bits(arr)
+    np.testing.assert_array_equal(got, jbitutils.convert_uint32_to_bits(arr))
+    assert got.shape == (32, 7, 9) and got.dtype == np.uint8
+    back = (got.astype(np.uint64) << np.arange(32, dtype=np.uint64)[:, None, None]).sum(0)
+    np.testing.assert_array_equal(back.astype(np.uint32), arr)

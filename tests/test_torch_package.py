@@ -20,6 +20,8 @@ import romanimpreprocess_tpu_torch
 from romanimpreprocess_tpu import benchlib as jbenchlib
 from romanimpreprocess_tpu import config as jconfig
 from romanimpreprocess_tpu.io import calfiles as jcalfiles
+from romanimpreprocess_tpu.ops import likely as jlikely
+from romanimpreprocess_tpu.ops import ramp as jramp
 from romanimpreprocess_tpu.synth import make_cal_files as jmake_cal_files
 from romanimpreprocess_tpu_torch import config, synth
 from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
@@ -55,7 +57,8 @@ def test_every_module_imports_without_jax():
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 32
     for m in ("ops.contract_cuda", "ops.pink", "ops.pink_cuda", "ops.rand",
-              "utils.skymodel", "pipeline.sim_to_l1"):
+              "utils.skymodel", "pipeline.sim_to_l1", "ops.ipc_slab",
+              "ops.likely", "ops.flat", "utils.bitutils"):
         assert "romanimpreprocess_tpu_torch." + m in _modules()
 
 
@@ -84,22 +87,31 @@ def test_nothing_is_built_at_import():
 @pytest.mark.parametrize("value,dev,want", [
     ("auto", "cpu", "xla"), ("AUTO", "cpu", "xla"), ("xla", "cpu", "xla"),
     ("auto", "cuda", "cuda"), ("xla", "cuda", "xla"), ("cuda", "cuda", "cuda"),
-    ("pallas", "cuda", "cuda"), ("pallas-stream", "cuda", "cuda"),
+    ("pallas", "cuda", "slab"), ("pallas-stream", "cuda", "slab-stream"),
     ("pallas-frame", "cuda", "cuda"),
 ])
 def test_resolve_backend(value, dev, want):
-    assert config.resolve_backend({"IPC_BACKEND": value}, "IPC_BACKEND", dev) == want
+    # the L1 -> L2 IPC inverse: each Pallas name has its own kernel
+    assert config.resolve_ipc_backend({"IPC_BACKEND": value}, dev) == want
+    # a key with one kernel: every kernel name selects it
+    one = "cuda" if want.startswith("slab") else want
+    assert config.resolve_backend({"LIN_BACKEND": value}, "LIN_BACKEND", dev) == one
 
 
 @pytest.mark.parametrize("value", ["cuda", "pallas", "pallas-stream", "pallas-frame"])
 def test_kernel_backend_on_cpu_raises(value):
     with pytest.raises(ValueError):
         config.resolve_backend({"IPC_BACKEND": value}, "IPC_BACKEND", "cpu")
+    with pytest.raises(ValueError, match="IPC_BACKEND"):
+        config.resolve_ipc_backend({"IPC_BACKEND": value}, "cpu")
 
 
 def test_unknown_backend_raises():
     with pytest.raises(ValueError):
         config.resolve_backend({"LIN_BACKEND": "triton"}, "LIN_BACKEND", "cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        config.resolve_ipc_backend({"IPC_BACKEND": "slab"}, "cuda")
+    assert config.resolve_ipc_backend({}, "cpu") == "xla"
     assert config.resolve_backend({}, "SKY_BACKEND", "cpu") == "xla"
 
 
@@ -169,13 +181,17 @@ def test_cuda_backend_on_cpu_device_raises_in_prepare(small):
         l1_to_l2.calibrateimage(cfg, device="cpu")
 
 
-def test_likelihood_fit_not_ported_yet(small):
+def test_likelihood_fit_plan_matches_reference(small):
     d, caldir = small
     l1 = asdf_lite.open(d + "/L1.asdf")["roman"]
     pack = calfiles.load_caldir(caldir)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        l1_to_l2.prepare_inputs(l1, {"CALDIR": caldir, "romancal_ramp_fit": True},
-                                pack, device="cpu")
+    prep = l1_to_l2.prepare_inputs(l1, {"CALDIR": caldir, "romancal_ramp_fit": True},
+                                   pack, device="cpu")
+    want = jlikely.build_likely_plan(jramp.ma_table_meta(READ_PATTERN, 3.04), True)
+    np.testing.assert_array_equal(prep["plan"].W, want.W)
+    assert prep["cfg"]["likelihood_fit"] is True
+    np.testing.assert_array_equal(prep["weights_out"], want.W[want.nu // 2, -1])
+    assert "likelihood (adaptive-weight) ramp fit" in prep["log"]
 
 
 def test_synthetic_l1_recovers_injected_rate(small):

@@ -12,7 +12,11 @@ Phases, each printing one JSON line:
    contraction, and the three slab-layout IPC inverses: blocked,
    streaming, fused full frame) against its plain PyTorch version on the
    card, at the main paths' shapes (4096^2 x 6 groups; the 4088^2 active
-   frame; 14 reads; 102 transforms of 2^20) and at small ragged shapes;
+   frame; 14 reads; 102 transforms of 2^20) and at small ragged shapes
+   that take every size branch (the block nanmedian's clusters of 1, 2,
+   4 and 8 CTAs and its streaming kernel, on noise and on duplicates,
+   signed zeros and infinities; the pink transform's wgmma and mma.sync
+   paths);
    CUDA-event medians of the kernel, the plain version and, where one
    exists, a single PyTorch call computing the same function; the least
    time the card could take (bytes over the memory rate, operations
@@ -122,9 +126,9 @@ def cuda_ms(fn, runs=10, warmup=2):
 
 
 L2_KERNEL_NAMES = ("linearity_kernel", "ipc_rev2_frame_kernel",
-                   "block_nanmedian_kernel", "ipc_slab_blocked_kernel",
+                   "block_nanmedian", "ipc_slab_blocked_kernel",
                    "ipc_slab_stream_kernel")
-SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_pass", "contract_kernel")
+SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_", "contract_kernel")
 
 
 def profile(fn, top=10, prefix="l1_to_l2", ours=L2_KERNEL_NAMES):
@@ -237,15 +241,27 @@ def ipc_inputs(ngrp, nside, gen, dev):
     return data, planes.contiguous(), gain
 
 
-def med_inputs(ny, nx, N, gen, dev, nan_frac=0.05):
+def med_inputs(ny, nx, N, gen, dev, nan_frac=0.05, edges=False):
+    """A noise frame with NaNs and one all-NaN block.  ``edges``: values
+    drawn from (-inf, -1, -0.0, +0.0, 1, +inf) instead, so that the
+    middle of every block lies among duplicates, signed zeros or
+    infinities, and (for N > 1) a block with a single valid value."""
     import torch
 
     from romanimpreprocess_tpu_torch.ops.sky import block_geometry
 
-    arr = torch.randn((ny, nx), generator=gen, device=dev) * 100.0
+    if edges:
+        vals = torch.tensor([-float("inf"), -1.0, -0.0, 0.0, 1.0, float("inf")],
+                            device=dev)
+        arr = vals[torch.randint(0, 6, (ny, nx), generator=gen, device=dev)]
+    else:
+        arr = torch.randn((ny, nx), generator=gen, device=dev) * 100.0
     arr[torch.rand((ny, nx), generator=gen, device=dev) < nan_frac] = float("nan")
     ky, kx, py, px = block_geometry(ny, nx, N)
     arr[py : py + ky, px : px + kx] = float("nan")  # one all-NaN block
+    if edges and N > 1:
+        arr[py : py + ky, px + kx : px + 2 * kx] = float("nan")
+        arr[py + ky // 2, px + kx + kx // 2] = -0.0  # one valid value
     return arr
 
 
@@ -315,12 +331,17 @@ def check_ipc(ngrp, nside, gen, dev, timed, card):
     return res
 
 
-def check_med(ny, nx, N, gen, dev, timed, card):
+def check_med(ny, nx, N, gen, dev, timed, card, path=None, edges=False):
+    """``path``: the size branch (``median_cuda.plan``) this case must
+    take, as (kernel, CTAs per block)."""
     import torch
 
     from romanimpreprocess_tpu_torch.ops import median_cuda, sky
 
-    arr = med_inputs(ny, nx, N, gen, dev)
+    plan = median_cuda.plan(ny, nx, N)
+    require(path is None or plan[:2] == path,
+            f"blockmed {ny}x{nx}/{N}: plan {plan}, expected {path}")
+    arr = med_inputs(ny, nx, N, gen, dev, edges=edges)
     got = median_cuda.block_nanmedian_fused(arr, N)
     ref = sky.block_nanmedian(arr, N)
     torch.cuda.synchronize()
@@ -335,7 +356,8 @@ def check_med(ny, nx, N, gen, dev, timed, card):
     g = got.cpu().numpy()
     require(bool(((g == oracle) | (np.isnan(g) & np.isnan(oracle))).all()),
             f"blockmed {ny}x{nx}/{N}: differs from np.nanmedian")
-    res = {"shape": [ny, nx], "N": N, "max_abs_err": 0.0, "bit_exact": True}
+    res = {"shape": [ny, nx], "N": N, "path": list(plan), "edges": edges,
+           "max_abs_err": 0.0, "bit_exact": True}
     if timed:
         # a row-strided view, as the main path passes the active region
         frame = torch.zeros((ny + 2 * NB, nx + 2 * NB), device=dev)
@@ -356,6 +378,14 @@ def check_med(ny, nx, N, gen, dev, timed, card):
         res["library_call"] = "torch.nanquantile(blocks, 0.5, dim=-1) on the (N*N, ky*kx) copy"
         res["bound_ms"], res["bound_by"] = bound(
             median_cuda.bytes_moved(ny, nx, N), 64 * N * ky * N * kx, card)
+        # a nearly constant frame, as a sky frame is: the keys share their
+        # leading digits, so the selection's early rounds keep every key
+        flat = 1000.0 + torch.randn((ny, nx), generator=gen, device=dev)
+        require(torch.equal(median_cuda.block_nanmedian_fused(flat, N),
+                            sky.block_nanmedian(flat, N)),
+                "blockmed: nearly constant frame differs")
+        res["ms_nearly_constant"] = cuda_ms(
+            lambda: median_cuda.block_nanmedian_fused(flat, N))
     return res
 
 
@@ -517,11 +547,15 @@ PINK_GATE_STD = 1e-2
 PINK_GATE_MAX = 5e-2
 
 
-def check_pink(ntr, length, gen, dev, timed, card):
+def check_pink(ntr, length, gen, dev, timed, card, wgmma=True):
+    """``wgmma``: the size branch (``pink_cuda.uses_wgmma``) this length
+    must take."""
     import torch
 
     from romanimpreprocess_tpu_torch.ops import pink, pink_cuda
 
+    require(pink_cuda.uses_wgmma(*pink.split_length(length)) == wgmma,
+            f"pink {length}: expected the {'wgmma' if wgmma else 'mma.sync'} path")
     white = torch.randn((ntr, 2, length), generator=gen, device=dev,
                         dtype=torch.bfloat16)
     got = pink_cuda.pink_from_white(white)
@@ -538,7 +572,8 @@ def check_pink(ntr, length, gen, dev, timed, card):
     require(mean < 1e-3 * s, f"pink {ntr}x{length}: frame mean {mean}")
     again = pink_cuda.pink_from_white(white)
     require(torch.equal(again, got), "pink: two launches on one input differ")
-    res = {"shape": [ntr, 2, length], "max_abs_err": d.max().item(),
+    res = {"shape": [ntr, 2, length], "path": "wgmma" if wgmma else "mma.sync",
+           "max_abs_err": d.max().item(),
            "frame_std": s, "diff_std_over_std": dstd, "diff_max_over_std": dmax,
            "max_abs_frame_mean": mean}
     del ref, d, again
@@ -617,12 +652,23 @@ def phase_kernels(card):
                       check_lin((3, 120, 130), gen, dev, False, card)],
         "ipc_rev2_frame": [check_ipc(NGRP, 128, gen, dev, False, card),
                            check_ipc(3, 120, gen, dev, False, card)],
-        "block_nanmedian": [check_med(130, 125, 8, gen, dev, False, card),
-                            check_med(128, 120, 4, gen, dev, False, card)],
+        # every size branch: clusters of 1, 2, 4 and 8 CTAs and the
+        # streaming kernel, on noise and on duplicates / +-0 / +-inf
+        "block_nanmedian": [
+            check_med(130, 125, 8, gen, dev, False, card, ("cluster", 1)),
+            check_med(128, 120, 4, gen, dev, False, card, ("cluster", 1), edges=True),
+            check_med(803, 1001, 4, gen, dev, False, card, ("cluster", 2), edges=True),
+            check_med(301, 260, 1, gen, dev, False, card, ("cluster", 4)),
+            check_med(1022, 1022, 2, gen, dev, False, card, ("cluster", 8), edges=True),
+            check_med(400, 400, 128, gen, dev, False, card, ("cluster", 1)),
+            check_med(700, 701, 1, gen, dev, False, card, ("stream", 0)),
+            check_med(1300, 1310, 2, gen, dev, False, card, ("stream", 0), edges=True)],
         "ipc_fwd_cube": [check_ipc_fwd(NGRP, 120, gen, dev, False, card),
                          check_ipc_fwd(3, 67, gen, dev, False, card)],
-        "pink_frames": [check_pink(3, 1 << 16, gen, dev, False, card),
-                        check_pink(2, 1 << 17, gen, dev, False, card)],  # n1 != n2
+        # 2^14: the mma.sync path; 2^16 and 2^17 (n1 != n2): the wgmma path
+        "pink_frames": [check_pink(3, 1 << 14, gen, dev, False, card, wgmma=False),
+                        check_pink(3, 1 << 16, gen, dev, False, card, wgmma=True),
+                        check_pink(2, 1 << 17, gen, dev, False, card, wgmma=True)],
         "contract_reads": [
             check_contract(sim_t_matrix(rp, dev), 120, 120, gen, dev, False, card),
             check_contract(torch.rand((11, 5), generator=gen, device=dev),

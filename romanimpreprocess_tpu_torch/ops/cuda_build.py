@@ -93,10 +93,11 @@ def _declare(lib):
     for name, args in (
         ("ipc_rev2_frame_launch", (P, P, P, P, I, I, I, P)),
         ("linearity_cube_launch", (P, P, P, P, P, P, P, P, P, I, I, L, I, P)),
-        ("block_nanmedian_launch", (P, P, I, I, L, I, P)),
+        ("block_nanmedian_launch", (P, P, I, I, L, I, I, I, P)),
         ("contract_reads_launch", (P, P, P, I, I, L, I, P)),
         ("ipc_fwd_cube_launch", (P, P, P, P, I, I, P)),
         ("pink_frames_launch", (P,) * 11 + (I, I, I, P)),
+        ("pink_frames_wgmma_launch", (P,) * 10 + (I, I, I, P)),
         ("ipc_slab_blocked_launch",
          (P, L, I, P, L, I, P, L, I, P, I, I, I, P, P, I, I, P)),
         ("ipc_slab_stream_launch", (P, L, I, P, L, I, P, L, I, P, I, I, I, P)),

@@ -9,16 +9,20 @@ run it without the conftest:
 
 Tolerances: the kernels repeat their plain twins' rounded steps in the
 same order (no FMA contraction), so linearity (cube and DQ), the block
-nanmedian, the read contraction, the forward IPC, the three slab IPC
+nanmedian (every size branch: clusters of 1 to 8 CTAs and the streaming
+kernel; also against ``np.nanmedian``), the read contraction, the forward IPC, the three slab IPC
 inverses (against the twin and against each other) and the L1 -> L2
 product are held bit for bit; the frame IPC inverse is held to 1e-5 of the
 largest value, the JAX package's own gate for its Pallas kernel.  The
-pink transform shares its twin's cast points and sums in another order:
+pink transform (the wgmma path and, below length 2^16, the mma.sync
+path) shares its twin's cast points and sums in another order:
 difference std < 1e-2 and max < 5e-2 of the frame std (the JAX
 package's gate for its two paths).  The sim with kernels against the
 plain sim, one seed: within 1 DN on every pixel (the pink frames differ
 in their last bits before the rounding to integer DN).
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -105,24 +109,79 @@ def test_linearity_cuda_matches_plain(cuda_device, ny, nx):
         assert (dq_got[0, 0] & i32(pixel.NO_LIN_CORR)).item() != 0
 
 
+def _nanmedian_oracle(arr, N):
+    ky, kx, py, px = sky.block_geometry(*arr.shape, N)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return np.nanmedian(arr[py : py + N * ky, px : px + N * kx]
+                            .reshape(N, ky, N, kx), axis=(1, 3))
+
+
+# (ny, nx, N, the size branch it must take, noise or edge values)
+MEDIAN_CASES = [
+    (130, 125, 8, ("cluster", 1), "noise"), (128, 120, 4, ("cluster", 1), "edges"),
+    (803, 1001, 4, ("cluster", 2), "edges"), (301, 260, 1, ("cluster", 4), "noise"),
+    (1022, 1022, 2, ("cluster", 8), "edges"), (1022, 1022, 2, ("cluster", 8), "sky"),
+    (640, 640, 1, ("cluster", 8), "noise"), (400, 400, 128, ("cluster", 1), "noise"),
+    (700, 701, 1, ("stream", 0), "noise"), (1300, 1310, 2, ("stream", 0), "edges"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ny,nx,N", [(130, 125, 8), (128, 120, 4)])
-def test_block_nanmedian_cuda_bit_identical(cuda_device, ny, nx, N):
-    rng = np.random.RandomState(1)
-    arr = (rng.randn(ny, nx) * 100).astype(np.float32)
+@pytest.mark.parametrize("ny,nx,N,path,kind", MEDIAN_CASES)
+def test_block_nanmedian_cuda_bit_identical(cuda_device, ny, nx, N, path, kind):
+    """Every size branch against the twin and np.nanmedian, bit for bit,
+    on a contiguous tensor and on a row-strided view.  ``edges``: values
+    from (-inf, -1, -0.0, +0.0, 1, +inf), so every median lies among
+    duplicates, signed zeros or infinities, with even and odd counts.
+    ``sky``: a nearly constant frame (all keys share their top digits)."""
+    assert median_cuda.plan(ny, nx, N)[:2] == path
+    rng = np.random.RandomState(ny + N)
+    if kind == "edges":
+        vals = np.array([-np.inf, -1.0, -0.0, 0.0, 1.0, np.inf], np.float32)
+        arr = vals[rng.randint(0, 6, (ny, nx))]
+    elif kind == "sky":
+        arr = (1000.0 + rng.randn(ny, nx)).astype(np.float32)
+    else:
+        arr = (rng.randn(ny, nx) * 100).astype(np.float32)
     arr[rng.rand(ny, nx) < 0.2] = np.nan
     ky, kx, py, px = sky.block_geometry(ny, nx, N)
     arr[py : py + ky, px : px + kx] = np.nan  # one all-NaN block
+    if N > 1:  # a block with one valid value
+        arr[py : py + ky, px + kx : px + 2 * kx] = np.nan
+        arr[py + ky // 2, px + kx + kx // 2] = -0.0
     a = torch.from_numpy(arr).to(cuda_device)
     frame = torch.zeros((ny + 8, nx + 8), device=cuda_device)
     frame[4:-4, 4:-4] = a
+    oracle = _nanmedian_oracle(arr, N)
     for view in (a, frame[4:-4, 4:-4]):  # contiguous and row-strided
         n0 = median_cuda.launches
         got = median_cuda.block_nanmedian_fused(view, N).cpu().numpy()
         ref = sky.block_nanmedian(view, N).cpu().numpy()
         assert median_cuda.launches == n0 + 1
         assert _same(got, ref)
+        assert _same(got, oracle)
         assert np.isnan(got[0, 0])
+        if N > 1:
+            assert got[0, 1] == 0.0
+        again = median_cuda.block_nanmedian_fused(view, N).cpu().numpy()
+        assert _same(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", [
+    [3.0, 1.0, 2.0], [1.0, 2.0, 3.0, 4.0], [5.0, 1.0, 2.0, 2.0, 2.0, 2.0, 9.0, 0.5],
+    [1.0, 2.0, 2.0, 7.0], [-0.0, 0.0, -0.0, 0.0], [-1.0, -0.0, 0.0, 1.0],
+    [-np.inf, -np.inf, np.inf, np.inf], [-np.inf, 1.0, 2.0, np.inf], [np.inf] * 5,
+    [np.nan, -0.0, np.nan, np.nan], [np.nan, 4.0, np.nan, -4.5], [np.nan] * 6,
+    [1e-45, -1e-45, 3e-45, 0.0], [3.4e38, -3.4e38, 1e-38, -1e-38, 0.0]])
+def test_block_nanmedian_cuda_edge_blocks(cuda_device, values):
+    blk = np.array(values, np.float32)[None]
+    got = median_cuda.block_nanmedian_fused(torch.from_numpy(blk).to(cuda_device), 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = np.nanmedian(blk)
+    assert _same(got.cpu().numpy()[0, 0], np.float32(want))
 
 
 @pytest.mark.cuda
@@ -263,9 +322,17 @@ def test_calibrateimage_likelihood_slab_routes_match(cuda_device, tmp_path):
     assert im["dumo"].dtype == np.float16 and im["chisq"].dtype == np.float16
 
 
+# (transforms, length, wgmma path): 2^14 and 2^15 take the mma.sync
+# kernels, longer lengths the wgmma ones; 2^15 and 2^17 have n1 != n2
+PINK_CASES = [(1, 1 << 14, False), (3, 1 << 14, False), (2, 1 << 15, False),
+              (1, 1 << 16, True), (3, 1 << 16, True), (2, 1 << 17, True),
+              (5, 1 << 17, True), (1, 1 << 20, True), (3, 1 << 20, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ntr,length", [(3, 1 << 16), (2, 1 << 17)])
-def test_pink_cuda_matches_plain(cuda_device, ntr, length):
+@pytest.mark.parametrize("ntr,length,wgmma", PINK_CASES)
+def test_pink_cuda_matches_plain(cuda_device, ntr, length, wgmma):
+    assert pink_cuda.uses_wgmma(*pink.split_length(length)) == wgmma
     gen = torch.Generator(device=cuda_device).manual_seed(length)
     white = torch.randn((ntr, 2, length), generator=gen, device=cuda_device,
                         dtype=torch.bfloat16)

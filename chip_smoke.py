@@ -9,35 +9,42 @@ Phases, each printing one JSON line:
    ``romanimpreprocess_tpu_torch/csrc`` into ``build/torch_ext/``.
 2. kernels: each hand-written CUDA kernel (linearity, IPC frame inverse,
    block nanmedian, forward IPC, pink-noise transform, read
-   contraction, and the three slab-layout IPC inverses: blocked,
-   streaming, fused full frame) against its plain PyTorch version on the
-   card, at the main paths' shapes (4096^2 x 6 groups; the 4088^2 active
-   frame; 14 reads; 102 transforms of 2^20) and at small ragged shapes
-   that take every size branch (the block nanmedian's clusters of 1, 2,
-   4 and 8 CTAs and its streaming kernel, on noise and on duplicates,
-   signed zeros and infinities; the pink transform's wgmma and mma.sync
-   paths);
+   contraction, and the slab-layout IPC inverse behind its three entry
+   points: blocked, streaming, fused full frame) against its plain
+   PyTorch version on the card, at the main paths' shapes (4096^2 x 6
+   groups; the 4088^2 active frame; 14 reads; 102 transforms of 2^20)
+   and at small ragged shapes that take every size branch (the block
+   nanmedian's clusters of 1, 2, 4 and 8 CTAs and its streaming kernel,
+   on noise and on duplicates, signed zeros and infinities; the pink
+   transform's wgmma and mma.sync paths; the slab kernel's group chunks,
+   strips and segments);
    CUDA-event medians of the kernel, the plain version and, where one
    exists, a single PyTorch call computing the same function; the least
    time the card could take (bytes over the memory rate, operations
    over the peak rate for their type).
-3. main path, L1 -> L2: a synthetic 4096^2 CALDIR and 6-group L1 through
+3. plain devices: the port's plain path on ``cuda`` held to the same
+   path on ``cpu`` at 128^2 (``utils/parity.py`` ``plain_devices``):
+   ``calibrateimage`` with the classic fit and the core with the
+   likelihood fit on the slab route's twin at the slice's gates; the
+   sim's resultants over 8 seeds at the moment gates, and sim -> L1 ->
+   L2 at the envelope gates, on each device.
+4. main path, L1 -> L2: a synthetic 4096^2 CALDIR and 6-group L1 through
    ``calibrateimage`` on ``cuda`` with every backend ``auto``
    (SKYORDER 2, SLICEOUT), kernel launch counts read around that run;
    the L2 checked (finite, DQ populated, injected rate recovered) and
    held against the plain path on the card (every backend ``xla``);
    the warm core timed with CUDA events, kernels and plain path in
    turns.
-4. main path, L1 -> L2 with the likelihood fit: the same CALDIR and L1
+5. main path, L1 -> L2 with the likelihood fit: the same CALDIR and L1
    through ``calibrateimage`` with ``romancal_ramp_fit: True``, once
-   with ``IPC_BACKEND: pallas`` (the blocked slab kernel through its
-   fused full-frame form) and once with ``pallas-stream`` (the
-   streaming slab kernel), launch counts read around each run; ``dumo``
+   with ``IPC_BACKEND: pallas`` (the slab kernel through the blocked
+   entry's fused full-frame form) and once with ``pallas-stream`` (the
+   streaming entry's frame form), launch counts read around each run; ``dumo``
    and ``chisq`` checked; the two L2 trees held bit for bit against each
    other and against the plain route (the slab twin, ``LIN``/``SKY``
    ``xla``), and within the slice tolerances against the frame route
    (``pallas-frame``); the warm core timed and profiled.
-5. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
+6. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
    through ``sim_to_l1.run_config`` on ``cuda`` (6 groups, 14 reads;
    ``IPC_BACKEND``/``PINK_BACKEND`` ``auto``, ``CONTRACT_BACKEND:
    pallas``), launch counts read around that run; the L1 file checked
@@ -126,8 +133,7 @@ def cuda_ms(fn, runs=10, warmup=2):
 
 
 L2_KERNEL_NAMES = ("linearity_kernel", "ipc_rev2_frame_kernel",
-                   "block_nanmedian", "ipc_slab_blocked_kernel",
-                   "ipc_slab_stream_kernel")
+                   "block_nanmedian", "ipc_slab_kernel")
 SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_", "contract_kernel")
 
 
@@ -462,13 +468,15 @@ def check_ipc_fwd(ngrp, na, gen, dev, timed, card):
 
 def check_ipc_slab(ngrp, na, gen, dev, timed, card, with_gain=True, padded=True,
                    th=32):
-    """The three slab-layout IPC inverses on one input: the blocked and
-    the streaming kernel on the (ngrp, na, na) active cube, the fused
-    form on the (ngrp, na + 2 NB, na + 2 NB) frame.  They repeat the
-    twin's rounded steps in its order, so every comparison is bit for
-    bit: each against the twin, blocked against streaming, the fused
-    frame's active region against blocked and its border against the
-    input, and a second launch against the first."""
+    """The slab-layout IPC inverse's entry points on one input: the
+    blocked and the streaming form on the (ngrp, na, na) active cube,
+    the fused form and the streaming route's frame form on the (ngrp,
+    na + 2 NB, na + 2 NB) frame; one kernel serves them all (its plan:
+    ``ipc_slab.plan``).  It repeats the twin's rounded steps in its
+    order, so every comparison is bit for bit: each against the twin,
+    blocked against streaming, each frame's active region against the
+    cube form and its border against the input, and a second launch
+    against the first."""
     import torch
 
     from romanimpreprocess_tpu_torch.ops import ipc_slab
@@ -494,6 +502,9 @@ def check_ipc_slab(ngrp, na, gen, dev, timed, card, with_gain=True, padded=True,
             cube, kern, gain, th=th),
         "correct_cube_fused": lambda: ipc_slab.correct_cube_fused(
             data, kern, gain, nborder=NB, th=th),
+        # the pallas-stream route's frame form (kernel 5 on the frame)
+        "correct_cube_stream": lambda: ipc_slab.correct_cube_stream(
+            data, kern, gain, nborder=NB, th=th),
     }
     twins = {
         "ipc_rev2_cube_blocked": lambda: ipc_slab.ipc_rev2_plain(
@@ -502,6 +513,7 @@ def check_ipc_slab(ngrp, na, gen, dev, timed, card, with_gain=True, padded=True,
             data, kern, gain, nborder=NB, th=th),
     }
     twins["ipc_rev2_cube_stream"] = twins["ipc_rev2_cube_blocked"]
+    twins["correct_cube_stream"] = twins["correct_cube_fused"]
     got = {k: fn() for k, fn in calls.items()}
     torch.cuda.synchronize()
     res = {}
@@ -516,19 +528,21 @@ def check_ipc_slab(ngrp, na, gen, dev, timed, card, with_gain=True, padded=True,
         del ref
     blocked, fused = got["ipc_rev2_cube_blocked"], got["correct_cube_fused"]
     require(torch.equal(blocked, got["ipc_rev2_cube_stream"]),
-            f"{what}: blocked and streaming kernels differ")
-    require(torch.equal(fused[:, NB : nside - NB, NB : nside - NB], blocked),
-            f"{what}: fused active region differs from the blocked kernel")
+            f"{what}: blocked and streaming entry points differ")
     border = torch.ones((nside, nside), dtype=torch.bool, device=dev)
     border[NB : nside - NB, NB : nside - NB] = False
-    require(torch.equal(fused[:, border], data[:, border]),
-            f"{what}: fused border not passed through")
+    for k in ("correct_cube_fused", "correct_cube_stream"):
+        require(torch.equal(got[k][:, NB : nside - NB, NB : nside - NB], blocked),
+                f"{what}: {k} active region differs from the cube form")
+        require(torch.equal(got[k][:, border], data[:, border]),
+                f"{what}: {k} border not passed through")
     del got, blocked, fused
     if timed:
+        frame_bytes = ipc_slab.fused_bytes_moved(ngrp, nside, NB, with_gain)
         nbytes = {
             "ipc_rev2_cube_blocked": ipc_slab.bytes_moved(ngrp, na, with_gain),
             "ipc_rev2_cube_stream": ipc_slab.bytes_moved(ngrp, na, with_gain),
-            "correct_cube_fused": ipc_slab.fused_bytes_moved(ngrp, nside, NB, with_gain),
+            "correct_cube_fused": frame_bytes, "correct_cube_stream": frame_bytes,
         }
         for k in calls:
             res[k]["ms"] = cuda_ms(calls[k])
@@ -674,11 +688,20 @@ def phase_kernels(card):
             check_contract(torch.rand((11, 5), generator=gen, device=dev),
                            37, 53, gen, dev, False, card)],
     }
+    # group counts above one register chunk (9, 17), a frame narrower
+    # than one warp strip (20), sizes that are multiples of neither the
+    # strip nor the segment (67, 131, 1000); gain on and off, raw and
+    # pre-padded planes
     slab_small = [
         check_ipc_slab(3, 96, gen, dev, False, card, True, True, th=16),
         check_ipc_slab(2, 100, gen, dev, False, card, False, False, th=16),
         check_ipc_slab(1, 100, gen, dev, False, card, True, False, th=8),
         check_ipc_slab(1, 131, gen, dev, False, card, False, True, th=32),
+        check_ipc_slab(9, 67, gen, dev, False, card, True, True, th=32),
+        check_ipc_slab(17, 131, gen, dev, False, card, False, False, th=8),
+        check_ipc_slab(2, 20, gen, dev, False, card, True, False, th=8),
+        check_ipc_slab(6, 1000, gen, dev, False, card, True, True, th=32),
+        check_ipc_slab(9, 1000, gen, dev, False, card, False, True, th=16),
     ]
     for k in SLAB_KERNELS:
         small[k] = [r[k] for r in slab_small]
@@ -708,7 +731,32 @@ def phase_kernels(card):
 
 
 # --------------------------------------------------------------------------
-# Phase 3: the main path
+# Phase 3: the plain path on the card against the plain path on the CPU
+# --------------------------------------------------------------------------
+
+def phase_plain_devices(card):
+    """The port's plain path on ``cuda`` held to the same path on
+    ``cpu`` at 128^2 (``parity.plain_devices``): the classic fit and the
+    likelihood fit (slab twin) at the slice's gates, the sim at its
+    moment and envelope gates.  The card's checks hold its kernels to
+    its plain path; this holds that path to the CPU's, which the CPU
+    tests hold to the JAX package."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.utils import parity
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_devices_")
+    t0 = time.perf_counter()
+    try:
+        rep = parity.plain_devices(d, "cpu", torch.device("cuda"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "plain_devices", "ok": True, "card": card, "nside": 128,
+          "seconds": time.perf_counter() - t0, **rep})
+
+
+# --------------------------------------------------------------------------
+# Phase 4: the main path
 # --------------------------------------------------------------------------
 
 def _compare_l2(ref, got, what, loose_bits=4, gate_sky=True, atol_frac=1e-5,
@@ -861,7 +909,7 @@ def phase_main(card, device, d, caldir, nside=NSIDE):
 
 
 # --------------------------------------------------------------------------
-# Phase 4: L1 -> L2 with the likelihood fit and the slab IPC kernels
+# Phase 5: L1 -> L2 with the likelihood fit and the slab IPC kernel
 # --------------------------------------------------------------------------
 
 L2_FIELDS = ("data", "data_withsky", "dq", "err", "var_poisson", "var_rnoise",
@@ -1031,7 +1079,7 @@ def phase_likely(card, device, d, caldir, l1path, rate, nside=NSIDE):
 
 
 # --------------------------------------------------------------------------
-# Phase 5: sim -> L1
+# Phase 6: sim -> L1
 # --------------------------------------------------------------------------
 
 JUMP_DET = 4
@@ -1225,6 +1273,7 @@ def main():
                     for src, p in libs.items()}})
 
     full = phase_kernels(card)
+    phase_plain_devices(card)
     d = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         caldir = make_caldir(d, NSIDE)

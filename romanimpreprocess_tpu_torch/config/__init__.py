@@ -15,9 +15,9 @@ import yaml
 
 #: backend names that select a hand-written CUDA kernel.  For the IPC
 #: inverse of L1 -> L2 the three Pallas names of the JAX package keep
-#: their meaning, each with its own kernel (:func:`resolve_ipc_backend`):
-#: 'pallas' the blocked slab kernel, 'pallas-stream' the streaming slab
-#: kernel, 'pallas-frame' the frame kernel.  Elsewhere (linearity, sky,
+#: their meaning, each with its own entry point (:func:`resolve_ipc_backend`):
+#: 'pallas' the blocked slab entry, 'pallas-stream' the streaming slab
+#: entry (one slab kernel serves both), 'pallas-frame' the frame kernel.  Elsewhere (linearity, sky,
 #: the sim's forward IPC and pink noise) there is one kernel per key and
 #: every name selects it.
 KERNEL_NAMES = ("cuda", "pallas", "pallas-stream", "pallas-frame")
@@ -72,13 +72,14 @@ def resolve_ipc_backend(config, device):
 
     - ``'cuda'``: the frame kernel ('cuda', 'pallas-frame', and 'auto'
       on a ``cuda`` device);
-    - ``'slab'``: the blocked slab kernel through its fused full-frame
+    - ``'slab'``: the slab kernel through its blocked fused full-frame
       form ('pallas');
-    - ``'slab-stream'``: the streaming slab kernel ('pallas-stream');
+    - ``'slab-stream'``: the slab kernel through its streaming
+      full-frame form ('pallas-stream');
     - ``'xla'``: the frame kernel's plain PyTorch version ('xla', and
       'auto' elsewhere).
 
-    The two slab kernels sum the inverse in another order than the frame
+    The slab kernel sums the inverse in another order than the frame
     kernel, so the routes differ in the last bits.  On a CPU device a
     name that selects a kernel raises.
     """

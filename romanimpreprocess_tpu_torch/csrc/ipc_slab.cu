@@ -1,10 +1,13 @@
-// Order-2 IPC inverse on an active-region cube: the blocked kernel, the
-// streaming kernel, and the fused full-frame launch of the blocked one.
+// Order-2 IPC inverse on an active-region cube: one row-streaming kernel
+// whose data path lives in registers, launched by every entry point (the
+// blocked and the streaming form, on the cube or on the full frame).
 //
 // Replaces the TPU kernels of romanimpreprocess_tpu/ops/ipc_pallas.py:
 // ipc_rev2_cube_blocked (_ipc_kernel_blocked), ipc_rev2_cube_stream
-// (_ipc_kernel_stream) and the wrapper correct_cube_fused.  For every
-// group of the (G, na, na) cube
+// (_ipc_kernel_stream) and the wrapper correct_cube_fused.  The TPU's two
+// traversals exist for its VMEM windows; they compute one function, and
+// here one __global__ computes it.  For every group of the (G, na, na)
+// cube
 //
 //     y   = d * gain                      (y = d without a gain)
 //     a   = K y,   b = K a
@@ -14,48 +17,54 @@
 //
 // with the weights indexed at the SOURCE pixel, the taps summed in the
 // order t = 0..8 (the first product starts the sum), and sources outside
-// the active region reading as +0: that is what the zero pad rows and
-// columns of the TPU kernels' slab layout give.  `a` is not zero one
-// pixel outside the active region (in-range sources spill there); it is
-// formed on that ring like anywhere else and killed by the ring's zero
-// weights when `b` is summed.
+// the active region reading as +0 (the zero pad of the TPU kernels' slab
+// layout).  Every step is an explicit _rn intrinsic in the order of the
+// plain PyTorch twin (ops/ipc_slab.py ipc_rev2_plain): no FMA
+// contraction, so the kernel agrees with the twin bit for bit.
 //
 // Every array comes with a row pitch (and the cube and the planes with a
-// group / plane stride), so one kernel reads
+// group / plane stride), so the kernel reads
 //   - a contiguous active-region cube or the active view of a full frame,
 //   - the raw (3, 3, na, na) IPC kernel (pitch na) or the pre-padded
 //     (9, rows_in, width) slab buffer in place (offset th * width + 2,
 //     pitch width): no repack, no slice copy.
 //
-// What bounds them: bytes.  Cube in and out, nine planes and the gain:
-// 4 * na^2 * (2 G + 9 + 1) = 1.47 GB at 6 groups of 4088^2.
+// What bounds it: bytes.  Cube in and out, nine planes and the gain:
+// 4 * na^2 * (2 G + 9 + 1) = 1.47 GB at 6 groups of 4088^2, 0.44 ms at
+// 3.35 TB/s.  Next to it, issue: some 70 instructions a pixel and group
+// (21 multiplies, 18 adds, the division, shuffles, copies).  What the
+// design does about them:
 //
-// Blocked kernel: one CTA per 32x32 output tile loads the nine planes
-// and the gain of its tile plus a 2-pixel halo into shared memory once
-// and loops over the groups; y (2-pixel halo) and a (1-pixel halo) live
-// in shared memory only.  The halo is read again by the neighbouring
-// CTAs ((36/32)^2 = 1.27 times the tile), as the TPU kernel's three
-// shifted windows read the cube three times.  The next group's cube tile
-// is loaded into registers while the current group is computed.
+// - A warp owns a strip of 64 columns, two adjacent ones a lane, and
+//   walks a segment of rows UPWARD (descending row index).  Rows reach a
+//   lane in the order the tap sum wants them: (K x)[R] takes its taps
+//   t = 0..2 from row R + 1, t = 3..5 from row R, t = 6..8 from row
+//   R - 1.  So when row s arrives its nine products y[s] * K_t[s] start
+//   a[s - 1], continue a[s] and finish a[s + 1]: two partial sums per
+//   group and column carry the window, no row of y or of the products
+//   is kept.  b runs one row behind on the finished a-row, with the
+//   weights of that row kept from the previous step.  The output of row
+//   s + 2 is written at step s.  No ring index is computed per tap.
+// - Horizontal taps: the product is formed at its source column (rounded
+//   there, as the twin rounds it); a lane's two columns are each other's
+//   neighbours, and the columns of the lanes beside it come by
+//   __shfl_sync: 6 shuffles a pass for two columns, no barrier.  Columns
+//   0, 1, 62, 63 are halo: a warp writes 60 columns.
+// - Loads: each warp keeps DEPTH rows in flight beyond the one it
+//   computes in its own ring of shared memory, filled by cp.async (8
+//   bytes, a lane's column pair, zero-filled outside the region) and
+//   read back by the lane that copied them, so no barrier either.
+// - Groups: the kernel is compiled for chunks of 1..8 groups held in
+//   registers; more groups take more chunks (a grid axis), each reading
+//   the planes again.
+// - Segments: the plan (ops/ipc_slab.py plan) sizes them so the grid is
+//   one wave of resident CTAs; each pays 4 warm-up rows.
 //
-// Streaming kernel: a CTA owns a strip of 128 columns (plus 2 halo
-// columns each side) and a segment of 64 rows, and marches down the rows
-// with a ring in shared memory: five rows of the nine planes, of the
-// gain and of y per group, three rows of a per group.  Each step loads
-// ONE row (planes, gain, all groups), forms the a-row above it and the
-// output row above that.  Every input row of a strip segment is read
-// from global memory once; a segment re-reads 4 warm-up rows (4/64) and
-// a strip 4 halo columns (4/128).
-//
-// Fused launch: the blocked kernel on the active view of the full frame
+// Frame forms: the same kernel on the active view of the full frame
 // (base offset nb * nside + nb, pitch nside), writing the active region
-// of the output frame; extra CTAs of the SAME launch copy the nb-wide
-// border through.
-//
-// Every rounding step is an explicit _rn intrinsic in the order of the
-// plain PyTorch twin (ops/ipc_slab.py ipc_rev2_plain): no FMA
-// contraction, so both kernels agree with the twin, and with each other,
-// bit for bit.
+// of the output frame; a few extra CTAs at the head of the SAME launch
+// copy the nb-wide border through (1.5 MB at 6 x 4096^2), with 16 loads
+// a thread in flight, beside the one wave of segments.
 #include <cuda_runtime.h>
 
 namespace {
@@ -83,335 +92,409 @@ struct Border {
     int nb;
 };
 
-// ------------------------------------------------------------------ blocked
+constexpr int LANES = 32;
+constexpr int COLS = 2;                    // adjacent columns a lane owns
+constexpr int WIDTH = COLS * LANES;        // columns a warp reads
+constexpr int HALO = 2;                    // halo columns on each side
+constexpr int STRIP = WIDTH - 2 * HALO;    // output columns of a warp
+constexpr int WARPS = 4;                   // warps (strips) of a CTA
+constexpr int NT = WARPS * LANES;
+constexpr int MAX_CHUNK = 8;               // groups a pass holds
+constexpr int BATCH = 16;                  // border pixels a thread loads at once
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int DEPTH = 3;                   // rows in flight beyond the one computed
+constexpr int RING = DEPTH + 1;            // rows of a warp's ring
 
-constexpr int TH = 32;            // output tile rows
-constexpr int TW = 32;            // output tile cols
-constexpr int HY = TH + 4;        // y / K / gain tile (2-pixel halo)
-constexpr int HX = TW + 4;
-constexpr int AY = TH + 2;        // a tile (1-pixel halo)
-constexpr int AX = TW + 2;
-constexpr int NTHREADS = 256;
-constexpr int HN = HY * HX;
-constexpr int YPT = (HN + NTHREADS - 1) / NTHREADS;  // tile values per thread
-constexpr size_t BLOCKED_SMEM = sizeof(float) * (9 * HN + 2 * HN + AY * AX);
+// shared memory of a CTA: each warp's ring of RING rows of (10 + GC)
+// arrays of WIDTH floats
+constexpr size_t ring_bytes(int gc)
+{
+    return sizeof(float) * WARPS * RING * (10 + gc) * WIDTH;
+}
 
+// copy `bytes` (0, 4 or 8) of src to dst, zero-filling the rest of 8
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, int bytes)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait()
+{
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// frame offset of border pixel i: the nb full rows at the top, those
+// at the bottom, then nb columns left and right of each row between
+__device__ __forceinline__ long long border_offset(const Border& q, long long i)
+{
+    const int nside = q.nside, nb = q.nb;
+    const int rows = nb * nside;
+    const int per = 2 * rows + 2 * nb * (nside - 2 * nb);
+    const long long g = i / per;
+    int j = (int)(i - g * per), r, c;
+    if (j < rows) {
+        r = j / nside;
+        c = j - r * nside;
+    } else if (j < 2 * rows) {
+        j -= rows;
+        r = nside - nb + j / nside;
+        c = j % nside;
+    } else {
+        j -= 2 * rows;
+        r = nb + j / (2 * nb);
+        const int k = j % (2 * nb);
+        c = k < nb ? k : nside - 2 * nb + k;
+    }
+    return (g * nside + r) * nside + c;
+}
+
+// copies the border of every frame: BATCH independent loads a thread in
+// flight, then their stores
 __device__ void copy_border(const Border& q, int ngrp, int block, int nblocks)
 {
-    // border pixels of one frame: nb full rows at the top and at the
-    // bottom, nb columns left and right of the na rows between
-    const long long nside = q.nside;
-    const int nb = q.nb;
-    const long long na = nside - 2 * nb;
-    const long long rows = (long long)nb * nside;
-    const long long per = 2 * rows + 2 * nb * na;
+    const long long per = 2LL * q.nb * q.nside + 2LL * q.nb * (q.nside - 2 * q.nb);
     const long long total = per * ngrp;
-    for (long long i = (long long)block * NTHREADS + threadIdx.x; i < total;
-         i += (long long)nblocks * NTHREADS) {
-        const long long g = i / per;
-        long long j = i % per;
-        long long r, c;
-        if (j < rows) {
-            r = j / nside;
-            c = j % nside;
-        } else if (j < 2 * rows) {
-            j -= rows;
-            r = nside - nb + j / nside;
-            c = j % nside;
-        } else {
-            j -= 2 * rows;
-            r = nb + j / (2 * nb);
-            const long long kk = j % (2 * nb);
-            c = kk < nb ? kk : nside - 2 * nb + kk;
+    const long long stride = (long long)nblocks * NT;
+    for (long long i0 = (long long)block * NT + threadIdx.x; i0 < total;
+         i0 += BATCH * stride) {
+        long long off[BATCH];
+        float v[BATCH];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+            const long long i = i0 + u * stride;
+            off[u] = i < total ? border_offset(q, i) : -1;
         }
-        const long long off = (g * nside + r) * nside + c;
-        q.out[off] = q.in[off];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u)
+            v[u] = off[u] >= 0 ? __ldg(q.in + off[u]) : 0.f;
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u)
+            if (off[u] >= 0) q.out[off[u]] = v[u];
     }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-ipc_slab_blocked_kernel(Slab p, Border q, int tiles_y)
+// acc + the taps t0, t0 + 1, t0 + 2 of v, in that order
+__device__ __forceinline__ float taps3(float acc, const float* v, int t0)
 {
-    if ((int)blockIdx.y >= tiles_y) {
-        copy_border(q, p.ngrp, (blockIdx.y - tiles_y) * gridDim.x + blockIdx.x,
-                    (gridDim.y - tiles_y) * gridDim.x);
+    return __fadd_rn(__fadd_rn(__fadd_rn(acc, v[t0]), v[t0 + 1]), v[t0 + 2]);
+}
+
+// The nine products of a lane's two columns (pe: column c, po: c + 1),
+// each formed at its source, as the terms of the two outputs: tap t
+// takes its source from column + 1 (t % 3 == 0), the column itself, or
+// column - 1 (t % 3 == 2).  Column c's right neighbour is the lane's
+// own c + 1 and its left one the previous lane's c + 1; column c + 1's
+// right neighbour is the next lane's c.  Six shuffles for two columns.
+__device__ __forceinline__ void to_terms(const float* pe, const float* po,
+                                         float* ve, float* vo)
+{
+#pragma unroll
+    for (int t = 0; t < 9; t += 3) {
+        ve[t] = po[t];
+        vo[t] = __shfl_down_sync(FULL, pe[t], 1);      // from lane + 1
+        ve[t + 1] = pe[t + 1];
+        vo[t + 1] = po[t + 1];
+        ve[t + 2] = __shfl_up_sync(FULL, po[t + 2], 1); // from lane - 1
+        vo[t + 2] = pe[t + 2];
+    }
+}
+
+template <int GC>
+__global__ void __launch_bounds__(NT, 3)
+ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
+                int border_ctas, int vec)
+{
+    int blk = blockIdx.x;
+    if (blk < border_ctas) {
+        copy_border(q, p.ngrp, blk, border_ctas);
         return;
     }
-    extern __shared__ float smem[];
-    float* k_s = smem;             // 9 x HY x HX
-    float* g_s = k_s + 9 * HN;     // HY x HX
-    float* y_s = g_s + HN;         // HY x HX
-    float* a_s = y_s + HN;         // AY x AX
+    blk -= border_ctas;
+    const int cx = blk % ctas_x;
+    blk /= ctas_x;
+    const int sg = blk % nseg;
+    const int ch = blk / nseg;
 
-    const int r0 = blockIdx.y * TH;
-    const int c0 = blockIdx.x * TW;
     const int na = p.na;
-    const int tid = threadIdx.x;
+    const int lane = threadIdx.x % LANES;
+    const int strip = cx * WARPS + threadIdx.x / LANES;
+    if (strip * STRIP >= na) return;  // the whole warp
+    // the lane's columns c and c + 1 (c even within the strip); lanes 1
+    // to 30 write theirs, lanes 0 and 31 are halo
+    const int c = strip * STRIP - HALO + COLS * lane;
+    const bool in0 = c >= 0 && c < na;
+    const bool in1 = c >= 0 && c + 1 < na;
+    const bool live = lane >= 1 && lane < LANES - 1;
+    const bool emit0 = live && c < na;
+    const bool emit1 = live && c + 1 < na;
+    const int g0 = ch * GC;
+    const int ng = min(GC, p.ngrp - g0);
+    const int rs = sg * seg;
+    const int re = min(rs + seg, na);
 
-    // nine planes + gain on the halo tile; zero weights outside the
-    // active region, gain 1 where there is none (x * 1 and x / 1 are x)
-    for (int i = tid; i < HN; i += NTHREADS) {
-        const int r = r0 - 2 + i / HX;
-        const int c = c0 - 2 + i % HX;
-        const bool in = r >= 0 && r < na && c >= 0 && c < na;
-        const size_t koff = in ? (size_t)r * p.k_pitch + c : 0;
-#pragma unroll
-        for (int t = 0; t < 9; ++t)
-            k_s[t * HN + i] = in ? p.k[(size_t)t * p.k_ps + koff] : 0.f;
-        g_s[i] = (in && p.gain) ? p.gain[(size_t)r * p.g_pitch + c] : 1.f;
-    }
+    const int cc = in0 ? c : 0;
+    const int nbytes = in1 ? 8 : in0 ? 4 : 0;
+    const float* kcol = p.k + cc;
+    const float* gcol = p.gain ? p.gain + cc : p.k;
+    const float* dcol = p.in + (long long)g0 * p.in_gs + cc;
+    // row s + 2 of the chunk's first group once moved up at step s
+    float* orow = p.out + (long long)g0 * p.out_gs + c + (long long)(re + 4) * p.out_pitch;
 
-    // the cube tile (2-pixel halo) of one group into registers, +0
-    // outside the active region; group g+1's loads are in flight while
-    // group g is computed
-    float dr[YPT];
-    auto load_tile = [&](int g) {
-        const float* d = p.in + (size_t)g * p.in_gs;
-#pragma unroll
-        for (int u = 0; u < YPT; ++u) {
-            const int i = tid + u * NTHREADS;
-            const int r = r0 - 2 + i / HX;
-            const int c = c0 - 2 + i % HX;
-            const bool in = i < HN && r >= 0 && r < na && c >= 0 && c < na;
-            dr[u] = in ? d[(size_t)r * p.in_pitch + c] : 0.f;
+    // the warp's ring of RING rows in shared memory: slot i holds the
+    // row's arrays (nine planes, the gain, the chunk's groups) of WIDTH
+    // floats; each lane copies and reads its own two columns only
+    extern __shared__ float ring_s[];
+    float* ring = ring_s + (threadIdx.x / LANES) * (RING * (10 + GC) * WIDTH) + COLS * lane;
+    // one column pair of one array: one 8-byte copy where every array is
+    // 8-byte aligned at even columns (vec), else two 4-byte copies
+    auto copy2 = [&](float* dst, const float* src, int bytes) {
+        if (vec) {
+            cp_async8(dst, src, bytes);
+        } else {
+            cp_async4(dst, src, bytes >= 4 ? 4 : 0);
+            cp_async4(dst + 1, bytes == 8 ? src + 1 : src, bytes == 8 ? 4 : 0);
         }
     };
-    load_tile(0);
+    // issue the copies of row r into slot i: +0 (zero fill) outside the
+    // region and outside the walk's rows [rs - 2, re + 1]
+    auto issue = [&](int r, int i) {
+        const bool in = r >= 0 && r >= rs - 2 && r < na;
+        const int bytes = in ? nbytes : 0;
+        const long long rr = in ? r : 0;
+        float* dst = ring + i * ((10 + GC) * WIDTH);
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+            copy2(dst + t * WIDTH, kcol + t * p.k_ps + rr * p.k_pitch, bytes);
+        copy2(dst + 9 * WIDTH, gcol + rr * p.g_pitch, p.gain ? bytes : 0);
+#pragma unroll
+        for (int j = 0; j < GC; ++j)
+            copy2(dst + (10 + j) * WIDTH,
+                  dcol + (j < ng ? j : 0) * p.in_gs + rr * p.in_pitch,
+                  j < ng ? bytes : 0);
+        cp_async_commit();
+    };
 
-    for (int g = 0; g < p.ngrp; ++g) {
-        float* o = p.out + (size_t)g * p.out_gs;
-        __syncthreads();  // planes loaded / previous group done with y_s, a_s
+    // before step s, per group and column: an = a[s] (taps 0..2), am =
+    // a[s + 1] (0..5), bn = b[s + 1] (0..2), bm = b[s + 2] (0..5), y1 =
+    // y[s + 1], u = 3 y[s + 2] - 3 a[s + 2]; kp = K[s + 1], g1 / g2 the
+    // gain of rows s + 1 / s + 2.  Warm-up rows leave them defined, never
+    // stored.
+    float an[GC][COLS], am[GC][COLS], bn[GC][COLS], bm[GC][COLS];
+    float y1[GC][COLS], u[GC][COLS], kp[9][COLS];
 #pragma unroll
-        for (int u = 0; u < YPT; ++u) {
-            const int i = tid + u * NTHREADS;
-            if (i < HN) y_s[i] = __fmul_rn(dr[u], g_s[i]);
+    for (int j = 0; j < GC; ++j)
+#pragma unroll
+        for (int h = 0; h < COLS; ++h)
+            an[j][h] = am[j][h] = bn[j][h] = bm[j][h] = y1[j][h] = u[j][h] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) kp[t][0] = kp[t][1] = 0.f;
+    float g1[COLS] = {1.f, 1.f}, g2[COLS] = {1.f, 1.f};
+
+#pragma unroll
+    for (int i = 0; i < DEPTH; ++i) issue(re + 1 - i, i);
+    int slot = 0;  // ring slot of row s
+    for (int s = re + 1; s >= rs - 2; --s) {
+        // DEPTH rows in flight beyond this one; wait for row s
+        issue(s - DEPTH, (slot + DEPTH) % RING);
+        cp_async_wait<DEPTH>();
+        const float* cur = ring + slot * ((10 + GC) * WIDTH);
+        slot = (slot + 1) % RING;
+        float kc[9][COLS], y[GC][COLS], gs[COLS];
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+            const float2 k2 = *reinterpret_cast<const float2*>(cur + t * WIDTH);
+            kc[t][0] = k2.x;
+            kc[t][1] = k2.y;
         }
-        __syncthreads();
-        if (g + 1 < p.ngrp) load_tile(g + 1);
-        // a = K y on the tile + 1-pixel ring; a-tile (ar, ac) is halo
-        // tile (ar + 1, ac + 1)
-        for (int i = tid; i < AY * AX; i += NTHREADS) {
-            const int hr = i / AX + 1;
-            const int hc = i % AX + 1;
-            float acc = 0.f;
+        if (p.gain) {
+            const float2 g = *reinterpret_cast<const float2*>(cur + 9 * WIDTH);
+            gs[0] = g.x;
+            gs[1] = g.y;
+        } else {
+            gs[0] = gs[1] = 1.f;
+        }
+#pragma unroll
+        for (int j = 0; j < GC; ++j) {
+            const float2 d = *reinterpret_cast<const float2*>(cur + (10 + j) * WIDTH);
+            y[j][0] = __fmul_rn(d.x, gs[0]);
+            y[j][1] = __fmul_rn(d.y, gs[1]);
+        }
+
+        const bool arow = s + 1 >= 0 && s + 1 < na;
+        const bool a0 = arow && in0, a1 = arow && in1;
+        const bool store = s + 2 < re;
+        orow -= p.out_pitch;
+#pragma unroll
+        for (int j = 0; j < GC; ++j) {
+            float pe[9], po[9], ve[9], vo[9], af[COLS], bf[COLS];
 #pragma unroll
             for (int t = 0; t < 9; ++t) {
-                const int src = (hr - (t / 3 - 1)) * HX + (hc - (t % 3 - 1));
-                const float prod = __fmul_rn(y_s[src], k_s[t * HN + src]);
-                acc = t == 0 ? prod : __fadd_rn(acc, prod);
+                pe[t] = __fmul_rn(y[j][0], kc[t][0]);
+                po[t] = __fmul_rn(y[j][1], kc[t][1]);
             }
-            a_s[i] = acc;
-        }
-        __syncthreads();
-        for (int i = tid; i < TH * TW; i += NTHREADS) {
-            const int tr = i / TW;
-            const int tc = i % TW;
-            const int r = r0 + tr;
-            const int c = c0 + tc;
-            if (r >= na || c >= na) continue;
-            const int ar = tr + 1;
-            const int ac = tc + 1;
-            float b = 0.f;
+            to_terms(pe, po, ve, vo);
+            af[0] = taps3(am[j][0], ve, 6);           // a[s + 1] complete
+            af[1] = taps3(am[j][1], vo, 6);
+            am[j][0] = taps3(an[j][0], ve, 3);
+            am[j][1] = taps3(an[j][1], vo, 3);
+            an[j][0] = __fadd_rn(__fadd_rn(ve[0], ve[1]), ve[2]);
+            an[j][1] = __fadd_rn(__fadd_rn(vo[0], vo[1]), vo[2]);
+            af[0] = a0 ? af[0] : 0.f;                  // +0 outside
+            af[1] = a1 ? af[1] : 0.f;
 #pragma unroll
             for (int t = 0; t < 9; ++t) {
-                const int sr = ar - (t / 3 - 1);
-                const int sc = ac - (t % 3 - 1);
-                const float prod = __fmul_rn(
-                    a_s[sr * AX + sc], k_s[t * HN + (sr + 1) * HX + (sc + 1)]);
-                b = t == 0 ? prod : __fadd_rn(b, prod);
+                pe[t] = __fmul_rn(af[0], kp[t][0]);
+                po[t] = __fmul_rn(af[1], kp[t][1]);
             }
-            const int h = (tr + 2) * HX + (tc + 2);
-            const float res = __fadd_rn(
-                __fsub_rn(__fmul_rn(3.f, y_s[h]),
-                          __fmul_rn(3.f, a_s[ar * AX + ac])), b);
-            o[(size_t)r * p.out_pitch + c] = __fdiv_rn(res, g_s[h]);
+            to_terms(pe, po, ve, vo);
+            bf[0] = taps3(bm[j][0], ve, 6);           // b[s + 2] complete
+            bf[1] = taps3(bm[j][1], vo, 6);
+            bm[j][0] = taps3(bn[j][0], ve, 3);
+            bm[j][1] = taps3(bn[j][1], vo, 3);
+            bn[j][0] = __fadd_rn(__fadd_rn(ve[0], ve[1]), ve[2]);
+            bn[j][1] = __fadd_rn(__fadd_rn(vo[0], vo[1]), vo[2]);
+            if (store && j < ng && emit0) {
+                float* o = orow + j * p.out_gs;
+                const float r0 = __fdiv_rn(__fadd_rn(u[j][0], bf[0]), g2[0]);
+                const float r1 = __fdiv_rn(__fadd_rn(u[j][1], bf[1]), g2[1]);
+                if (vec && emit1) {
+                    *reinterpret_cast<float2*>(o) = make_float2(r0, r1);
+                } else {
+                    o[0] = r0;
+                    if (emit1) o[1] = r1;
+                }
+            }
+#pragma unroll
+            for (int h = 0; h < COLS; ++h) {
+                u[j][h] = __fsub_rn(__fmul_rn(3.f, y1[j][h]), __fmul_rn(3.f, af[h]));
+                y1[j][h] = y[j][h];
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+            kp[t][0] = kc[t][0];
+            kp[t][1] = kc[t][1];
+        }
+#pragma unroll
+        for (int h = 0; h < COLS; ++h) {
+            g2[h] = g1[h];
+            g1[h] = gs[h];
         }
     }
 }
 
-// ---------------------------------------------------------------- streaming
-
-constexpr int SW = 128;           // strip columns
-constexpr int SWH = SW + 4;       // y / K / gain row (2-pixel halo)
-constexpr int SWA = SW + 2;       // a row (1-pixel halo)
-constexpr int SEG = 64;           // rows per segment
-constexpr int SNT = 288;          // threads: >= 2 * SWH for the row load
-constexpr int YR = 5;             // ring rows of y, K, gain
-constexpr int AR = 3;             // ring rows of a
-
-__host__ __device__ inline size_t stream_smem(int ngrp)
+template <int GC>
+cudaError_t launch(const Slab& p, const Border& q, int ctas_x, int nseg,
+                   int seg, int nch, int border_ctas, int vec, cudaStream_t stream)
 {
-    return sizeof(float) * ((size_t)(9 + 1 + ngrp) * YR * SWH
-                            + (size_t)ngrp * AR * SWA);
+    const long long grid = (long long)ctas_x * nseg * nch + border_ctas;
+    if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        ipc_slab_kernel<GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)ring_bytes(GC));
+    if (err != cudaSuccess) return err;
+    ipc_slab_kernel<GC><<<(unsigned)grid, NT, ring_bytes(GC), stream>>>(
+        p, q, ctas_x, nseg, seg, border_ctas, vec);
+    return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(SNT)
-ipc_slab_stream_kernel(Slab p)
+template <int GC>
+cudaError_t resident(int* ctas)
 {
-    extern __shared__ float smem[];
-    const int G = p.ngrp;
-    float* k_s = smem;                   // 9 x YR x SWH
-    float* g_s = k_s + 9 * YR * SWH;     // YR x SWH
-    float* y_s = g_s + YR * SWH;         // G x YR x SWH
-    float* a_s = y_s + G * YR * SWH;     // G x AR x SWA
+    int per_sm = 0, dev = 0, sms = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        ipc_slab_kernel<GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)ring_bytes(GC));
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, ipc_slab_kernel<GC>, NT, ring_bytes(GC));
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    *ctas = per_sm * sms;
+    return err;
+}
 
-    const int na = p.na;
-    const int c0 = blockIdx.x * SW;
-    const int rs = blockIdx.y * SEG;
-    const int re = min(rs + SEG, na);
-    const int tid = threadIdx.x;
+}  // namespace
 
-    // step L: load row L; then a-row L-1 (y rows L-2..L are in the
-    // ring); then output row L-2 (a rows L-3..L-1).  Rows rs-2, rs-1,
-    // re, re+1 are the segment's warm-up and tail.
-    for (int L = rs - 2; L <= re + 1; ++L) {
-        const int sl = (L + 2 * YR) % YR;
-        const bool rin = L >= 0 && L < na;
-        // one thread per (column, half): half 0 the nine planes, half 1
-        // the gain and every group's y = d * gain
-        if (tid < 2 * SWH) {
-            const int x = tid % SWH;
-            const int c = c0 - 2 + x;
-            const bool in = rin && c >= 0 && c < na;
-            if (tid < SWH) {
-                const size_t koff = in ? (size_t)L * p.k_pitch + c : 0;
-#pragma unroll
-                for (int t = 0; t < 9; ++t)
-                    k_s[(t * YR + sl) * SWH + x] =
-                        in ? p.k[(size_t)t * p.k_ps + koff] : 0.f;
-            } else {
-                const float gv = (in && p.gain)
-                    ? p.gain[(size_t)L * p.g_pitch + c] : 1.f;
-                g_s[sl * SWH + x] = gv;
-                const size_t doff = in ? (size_t)L * p.in_pitch + c : 0;
-                for (int g = 0; g < G; ++g) {
-                    const float d = in ? p.in[(size_t)g * p.in_gs + doff] : 0.f;
-                    y_s[(g * YR + sl) * SWH + x] = __fmul_rn(d, gv);
-                }
-            }
-        }
-        __syncthreads();
-        // a-row R = L - 1 on the strip + 1-pixel ring: a column ax is
-        // row column ax + 1
-        const int R = L - 1;
-        if (R >= rs - 1) {
-            const int as = (R + 2 * AR) % AR;
-            for (int i = tid; i < G * SWA; i += SNT) {
-                const int g = i / SWA;
-                const int hc = i % SWA + 1;
-                float acc = 0.f;
-#pragma unroll
-                for (int t = 0; t < 9; ++t) {
-                    const int s = (R - (t / 3 - 1) + 2 * YR) % YR;
-                    const int sx = hc - (t % 3 - 1);
-                    const float prod = __fmul_rn(y_s[(g * YR + s) * SWH + sx],
-                                                 k_s[(t * YR + s) * SWH + sx]);
-                    acc = t == 0 ? prod : __fadd_rn(acc, prod);
-                }
-                a_s[(g * AR + as) * SWA + (hc - 1)] = acc;
-            }
-        }
-        __syncthreads();
-        // output row O = L - 2
-        const int O = L - 2;
-        if (O >= rs) {
-            const int ys = (O + 2 * YR) % YR;
-            for (int i = tid; i < G * SW; i += SNT) {
-                const int g = i / SW;
-                const int tc = i % SW;
-                const int c = c0 + tc;
-                if (c >= na) continue;
-                const int ac = tc + 1;
-                float b = 0.f;
-#pragma unroll
-                for (int t = 0; t < 9; ++t) {
-                    const int sr = O - (t / 3 - 1);
-                    const int sc = ac - (t % 3 - 1);
-                    const float prod = __fmul_rn(
-                        a_s[(g * AR + (sr + 2 * AR) % AR) * SWA + sc],
-                        k_s[(t * YR + (sr + 2 * YR) % YR) * SWH + sc + 1]);
-                    b = t == 0 ? prod : __fadd_rn(b, prod);
-                }
-                const float y = y_s[(g * YR + ys) * SWH + tc + 2];
-                const float a = a_s[(g * AR + (O + 2 * AR) % AR) * SWA + ac];
-                const float res = __fadd_rn(
-                    __fsub_rn(__fmul_rn(3.f, y), __fmul_rn(3.f, a)), b);
-                p.out[(size_t)g * p.out_gs + (size_t)O * p.out_pitch + c] =
-                    __fdiv_rn(res, g_s[ys * SWH + tc + 2]);
-            }
-        }
-        // the next step's load overwrites the ring row of L - 4 and its
-        // a-row that of L - 3: neither is read after this point, and the
-        // sync after the load orders the a-row write behind these reads
+// CTAs of the kernel compiled for `chunk` groups that the current device
+// holds at once.
+extern "C" int ipc_slab_resident(int chunk, int* ctas)
+{
+    switch (chunk) {
+    case 1: return (int)resident<1>(ctas);
+    case 2: return (int)resident<2>(ctas);
+    case 3: return (int)resident<3>(ctas);
+    case 4: return (int)resident<4>(ctas);
+    case 5: return (int)resident<5>(ctas);
+    case 6: return (int)resident<6>(ctas);
+    case 7: return (int)resident<7>(ctas);
+    case 8: return (int)resident<8>(ctas);
+    default: return (int)cudaErrorInvalidValue;
     }
 }
 
-Slab make_slab(const float* in, long long in_gs, int in_pitch,
-               float* out, long long out_gs, int out_pitch,
-               const float* k, long long k_ps, int k_pitch,
-               const float* gain, int g_pitch, int ngrp, int na)
+// One launch: segments of `seg` rows, chunks of `chunk` groups (the plan
+// of ops/ipc_slab.py).  With frame_in / frame_out given (the frame
+// forms), `in` and `out` point at the active region inside those (ngrp,
+// nside, nside) frames and `border_ctas` extra CTAs at the head of the
+// grid copy the nborder-wide border from frame_in to frame_out while the
+// others walk their segments.
+extern "C" int ipc_slab_launch(
+    const float* in, long long in_gs, int in_pitch,
+    float* out, long long out_gs, int out_pitch,
+    const float* k, long long k_ps, int k_pitch,
+    const float* gain, int g_pitch, int ngrp, int na,
+    const float* frame_in, float* frame_out, int nside, int nborder,
+    int border_ctas, int seg, int chunk, void* stream)
 {
+    if (ngrp < 1 || na < 1 || seg < 1 || chunk < 1 || chunk > MAX_CHUNK ||
+        border_ctas < 0)
+        return (int)cudaErrorInvalidValue;
     Slab p;
     p.in = in; p.in_gs = in_gs; p.in_pitch = in_pitch;
     p.out = out; p.out_gs = out_gs; p.out_pitch = out_pitch;
     p.k = k; p.k_ps = k_ps; p.k_pitch = k_pitch;
     p.gain = gain; p.g_pitch = g_pitch;
     p.ngrp = ngrp; p.na = na;
-    return p;
-}
-
-}  // namespace
-
-// The blocked kernel.  With frame_in / frame_out given (the fused
-// launch), `in` and `out` point at the active region inside those
-// (ngrp, nside, nside) frames and extra CTAs of the launch copy the
-// nborder-wide border from frame_in to frame_out.
-extern "C" int ipc_slab_blocked_launch(
-    const float* in, long long in_gs, int in_pitch,
-    float* out, long long out_gs, int out_pitch,
-    const float* k, long long k_ps, int k_pitch,
-    const float* gain, int g_pitch, int ngrp, int na,
-    const float* frame_in, float* frame_out, int nside, int nborder,
-    void* stream)
-{
-    cudaError_t err = cudaFuncSetAttribute(
-        ipc_slab_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)BLOCKED_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    const Slab p = make_slab(in, in_gs, in_pitch, out, out_gs, out_pitch,
-                             k, k_ps, k_pitch, gain, g_pitch, ngrp, na);
     Border q;
     q.in = frame_in; q.out = frame_out; q.nside = nside; q.nb = nborder;
-    const int tiles_x = (na + TW - 1) / TW;
-    const int tiles_y = (na + TH - 1) / TH;
-    int extra_y = 0;
-    if (frame_in && nborder > 0) {
-        // about 8 border pixels per thread
-        const long long per = 4LL * nborder * (nside - nborder);
-        const long long blocks = (per * ngrp + 8 * NTHREADS - 1) / (8 * NTHREADS);
-        extra_y = (int)((blocks + tiles_x - 1) / tiles_x);
+    const int strips = (na + STRIP - 1) / STRIP;
+    const int ctas_x = (strips + WARPS - 1) / WARPS;
+    const int nseg = (na + seg - 1) / seg;
+    const int nch = (ngrp + chunk - 1) / chunk;
+    if (!frame_in || nborder <= 0) border_ctas = 0;
+    // 8-byte copies and stores of column pairs: every array 8-byte
+    // aligned at even columns of every row, group and plane
+    auto even = [](const void* ptr, long long a, long long b) {
+        return ((unsigned long long)ptr % 8 == 0) && a % 2 == 0 && b % 2 == 0;
+    };
+    const int vec = even(in, in_gs, in_pitch) && even(out, out_gs, out_pitch)
+        && even(k, k_ps, k_pitch) && (!gain || even(gain, 0, g_pitch));
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (chunk) {
+    case 1: return (int)launch<1>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
+    case 2: return (int)launch<2>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
+    case 3: return (int)launch<3>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
+    case 4: return (int)launch<4>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
+    case 5: return (int)launch<5>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
+    case 6: return (int)launch<6>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
+    case 7: return (int)launch<7>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
+    default: return (int)launch<8>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
     }
-    dim3 grid(tiles_x, tiles_y + extra_y);
-    ipc_slab_blocked_kernel<<<grid, NTHREADS, BLOCKED_SMEM,
-                              (cudaStream_t)stream>>>(p, q, tiles_y);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int ipc_slab_stream_launch(
-    const float* in, long long in_gs, int in_pitch,
-    float* out, long long out_gs, int out_pitch,
-    const float* k, long long k_ps, int k_pitch,
-    const float* gain, int g_pitch, int ngrp, int na, void* stream)
-{
-    const size_t smem = stream_smem(ngrp);
-    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        ipc_slab_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const Slab p = make_slab(in, in_gs, in_pitch, out, out_gs, out_pitch,
-                             k, k_ps, k_pitch, gain, g_pitch, ngrp, na);
-    dim3 grid((na + SW - 1) / SW, (na + SEG - 1) / SEG);
-    ipc_slab_stream_kernel<<<grid, SNT, smem, (cudaStream_t)stream>>>(p);
-    return (int)cudaGetLastError();
 }

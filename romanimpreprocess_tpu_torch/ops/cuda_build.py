@@ -98,9 +98,9 @@ def _declare(lib):
         ("ipc_fwd_cube_launch", (P, P, P, P, I, I, P)),
         ("pink_frames_launch", (P,) * 11 + (I, I, I, P)),
         ("pink_frames_wgmma_launch", (P,) * 10 + (I, I, I, P)),
-        ("ipc_slab_blocked_launch",
-         (P, L, I, P, L, I, P, L, I, P, I, I, I, P, P, I, I, P)),
-        ("ipc_slab_stream_launch", (P, L, I, P, L, I, P, L, I, P, I, I, I, P)),
+        ("ipc_slab_launch",
+         (P, L, I, P, L, I, P, L, I, P, I, I, I, P, P, I, I, I, I, I, P)),
+        ("ipc_slab_resident", (I, P)),
     ):
         if hasattr(lib, name):
             fn = getattr(lib, name)

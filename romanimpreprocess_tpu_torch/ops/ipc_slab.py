@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels for the order-2 IPC inverse on the
-active-region cube: blocked, streaming, and the fused full-frame form.
+"""Hand-written CUDA kernel for the order-2 IPC inverse on the
+active-region cube, behind the three entry points of the TPU module.
 
 Replaces the slab half of the TPU module ``ops/ipc_pallas.py`` of the
 JAX package: ``ipc_rev2_cube_blocked`` (``IPC_BACKEND: pallas``),
@@ -13,18 +13,28 @@ first product starts the sum; source-indexed weights; zero fill).  This
 is another order of summation than the frame kernel's Neumann recursion
 (:mod:`.ipc_cuda`), so the two routes differ in the last bits.
 
-The kernels (``csrc/ipc_slab.cu``) take row pitches, so they read the
-raw (3, 3, na, na) IPC kernel or the pre-padded (9, rows_in, width)
-buffer of :func:`kernel_planes_padded` in place, and the fused form
-reads the active view of the full frame with no slice copy.  The padded
-slab layout itself (science at ``[th:th+na, 2:2+na]``) is the TPU
-kernels' block geometry; here it is only a layout the entry points
-accept, for parity with the reference's contract.
+The TPU's blocked and streaming traversals exist for its VMEM windows;
+here one kernel (``csrc/ipc_slab.cu``) serves every entry point: a warp
+owns a strip of 64 columns, two a lane (60 written, :data:`STRIP`),
+walks a segment of rows upward with the window of partial tap sums in
+registers, and moves products between lanes by shuffles.  :func:`plan` cuts the cube
+into strips, segments and group chunks.  The kernel takes row pitches,
+so it reads the raw (3, 3, na, na) IPC kernel or the pre-padded (9,
+rows_in, width) buffer of :func:`kernel_planes_padded` in place, and the
+frame forms (:func:`correct_cube_fused`, :func:`correct_cube_stream`)
+read the active view of the full frame and write the output frame's
+active region, the border copied by the same launch.  The padded slab
+layout itself (science at ``[th:th+na, 2:2+na]``) is the TPU kernels'
+block geometry; here it is only a layout the entry points accept, for
+parity with the reference's contract.
 
 Plain twin: :func:`ipc_rev2_plain`.  A CPU tensor takes the twin; a CUDA
 tensor launches the kernel, with which the twin agrees bit for bit.
 Bound: bytes (:func:`bytes_moved`), 1.47 GB at 6 groups of 4088^2.
 """
+
+import collections
+import ctypes
 
 import numpy as np
 import torch
@@ -40,13 +50,71 @@ TAPS = [
     (1, -1), (1, 0), (1, 1),
 ]
 
-#: launches of the blocked kernel since the last reset (by
-#: :func:`ipc_rev2_cube_blocked` or :func:`correct_cube_fused`)
+#: launches by :func:`ipc_rev2_cube_blocked` and :func:`correct_cube_fused`
+#: (the TPU module's fused form wraps the blocked one) since the last reset
 blocked_launches = 0
-#: launches of the streaming kernel since the last reset
+#: launches by :func:`ipc_rev2_cube_stream` and :func:`correct_cube_stream`
 stream_launches = 0
-#: fused full-frame launches (of the blocked kernel) since the last reset
+#: launches by :func:`correct_cube_fused`
 fused_launches = 0
+
+#: columns a warp reads: 32 lanes of two adjacent columns each
+WIDTH = 64
+#: output columns of a warp: less two halo columns on each side
+STRIP = WIDTH - 4
+#: warps (strips) of a CTA
+WARPS = 4
+#: most groups one pass holds in registers (the kernel is compiled for 1..8)
+GROUP_CHUNK = 8
+#: shortest segment, so the warm-up stays under a fifth of the rows read
+MIN_SEG = 16
+#: CTAs an H100 holds at once, when the device is not asked (132 SMs x 3)
+RESIDENT_H100 = 396
+#: CTAs of a frame-form launch that copy the border beside the segments
+BORDER_CTAS = 8
+
+
+#: how the kernel cuts a (ngrp, na, na) cube: ``strip`` output columns
+#: per warp, ``seg`` output rows per segment (``nseg`` of them), ``chunk``
+#: groups per pass (``nchunks`` passes, each reading the planes), and the
+#: ``grid`` of CTAs (``ctas_x`` across)
+Plan = collections.namedtuple(
+    "Plan", ("strip", "seg", "nseg", "chunk", "nchunks", "ctas_x", "grid"))
+
+
+def plan(na, ngrp, resident=RESIDENT_H100):
+    """The kernel's partition of a (ngrp, na, na) cube, given the CTAs
+    the card holds at once (``resident``).  Groups split into the fewest
+    chunks of at most :data:`GROUP_CHUNK`, as even as they go; segments
+    are as long as one wave of resident CTAs allows (each reads 4
+    warm-up rows, 2 above and 2 below what it writes), and no shorter
+    than :data:`MIN_SEG` rows."""
+    if na < 1 or ngrp < 1:
+        raise ValueError(f"plan: na {na} and ngrp {ngrp} must be positive")
+    nchunks = -(-ngrp // GROUP_CHUNK)
+    chunk = -(-ngrp // nchunks)
+    strips = -(-na // STRIP)
+    ctas_x = -(-strips // WARPS)
+    nseg = max(1, min(resident // (ctas_x * nchunks), na // MIN_SEG))
+    seg = -(-na // nseg)
+    nseg = -(-na // seg)
+    return Plan(STRIP, seg, nseg, chunk, nchunks, ctas_x, ctas_x * nseg * nchunks)
+
+
+def reread_share(na, ngrp, resident=RESIDENT_H100):
+    """Elements the plan's warps load beyond one read of each input, as
+    a share of :func:`bytes_moved` (with a gain): the halo columns of
+    every strip (4 of 64) and the warm-up rows of every segment, on
+    the cube, and on the planes and gain once per chunk.  Neighbouring
+    warps of a CTA load the same halo columns at about the same time, so
+    the caches serve most of that part."""
+    p = plan(na, ngrp, resident)
+    cols = sum(min(na, STRIP * i + STRIP + 2) - max(0, STRIP * i - 2)
+               for i in range(-(-na // STRIP)))
+    rows = sum(min(na, min(r + p.seg, na) + 2) - max(0, r - 2)
+               for r in range(0, na, p.seg))
+    loaded = (ngrp + 10 * p.nchunks) * cols * rows
+    return (loaded - (ngrp + 10) * na * na) / ((2 * ngrp + 10) * na * na)
 
 
 def _pad_geom(na, th):
@@ -179,47 +247,74 @@ def _require_inputs(cube, kernel, gain, na, th):
     return ngrp, planes
 
 
-def ipc_rev2_cube_blocked(cube, kernel, gain=None, th=16):
-    """Order-2 IPC inverse of a (ngrp, na, na) float32 cube, 2-D tiles
-    with their own halo.  ``kernel`` is the raw (3, 3, na, na) tensor or
-    the pre-padded one built with this ``th`` (which only names the slab
-    geometry to check it against); ``gain`` an optional (na, na) plane
-    (the cube is then in DN).  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel."""
-    na = cube.shape[-1]
-    if cube.device.type == "cpu":
-        return ipc_rev2_plain(cube, _planes_view(kernel, na, th), gain)
-    global blocked_launches
-    ngrp, planes = _require_inputs(cube, kernel, gain, na, th)
-    out = torch.empty_like(cube)
+_RESIDENT = {}
+
+
+def _resident(lib, device, chunk):
+    """CTAs of the kernel compiled for ``chunk`` groups that ``device``
+    holds at once (asked once per device and chunk)."""
+    key = (device.index, chunk)
+    if key not in _RESIDENT:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.ipc_slab_resident(chunk, ctypes.byref(n))
+        cuda_build.check(err, "ipc_slab_resident")
+        _RESIDENT[key] = n.value
+    return _RESIDENT[key]
+
+
+def _launch(src, dst, planes, gain, frame_in=None, frame_out=None, nborder=0):
+    """One launch of the kernel on the (ngrp, na, na) views ``src`` ->
+    ``dst``; with ``frame_in`` / ``frame_out`` the extra CTAs copy their
+    ``nborder``-wide border."""
+    ngrp, na = src.shape[0], src.shape[-1]
     lib = cuda_build.library("ipc_slab.cu")
-    with torch.cuda.device(cube.device):
-        err = lib.ipc_slab_blocked_launch(
-            *_slab_args(cube, out, planes, gain, ngrp, na),
-            None, None, 0, 0, cuda_build.stream_ptr(cube),
+    border = BORDER_CTAS if frame_in is not None and nborder > 0 else 0
+    resident = _resident(lib, src.device, plan(na, ngrp).chunk)
+    p = plan(na, ngrp, max(1, resident - border))
+    with torch.cuda.device(src.device):
+        err = lib.ipc_slab_launch(
+            *_slab_args(src, dst, planes, gain, ngrp, na),
+            None if frame_in is None else frame_in.data_ptr(),
+            None if frame_out is None else frame_out.data_ptr(),
+            0 if frame_in is None else frame_in.shape[-1], nborder,
+            border, p.seg, p.chunk, cuda_build.stream_ptr(src),
         )
-    cuda_build.check(err, "ipc_slab_blocked_launch")
+    cuda_build.check(err, "ipc_slab_launch")
+
+
+def _cube(cube, kernel, gain, th):
+    """One launch on a contiguous (ngrp, na, na) cube."""
+    na = cube.shape[-1]
+    _, planes = _require_inputs(cube, kernel, gain, na, th)
+    out = torch.empty_like(cube)
+    _launch(cube, out, planes, gain)
+    return out
+
+
+def ipc_rev2_cube_blocked(cube, kernel, gain=None, th=16):
+    """Order-2 IPC inverse of a (ngrp, na, na) float32 cube.  ``kernel``
+    is the raw (3, 3, na, na) tensor or the pre-padded one built with
+    this ``th`` (which only names the slab geometry to check it
+    against); ``gain`` an optional (na, na) plane (the cube is then in
+    DN).  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel."""
+    if cube.device.type == "cpu":
+        return ipc_rev2_plain(cube, _planes_view(kernel, cube.shape[-1], th), gain)
+    global blocked_launches
+    out = _cube(cube, kernel, gain, th)
     blocked_launches += 1
     return out
 
 
 def ipc_rev2_cube_stream(cube, kernel, gain=None, th=16):
-    """The same function as :func:`ipc_rev2_cube_blocked`, bit for bit,
-    with every input row of a column strip read once: a ring of rows in
-    shared memory carries the halo down the strip."""
-    na = cube.shape[-1]
+    """The same function as :func:`ipc_rev2_cube_blocked`, bit for bit:
+    the reference's single-read streaming form.  On the card both are
+    one launch of the one kernel, which streams rows itself."""
     if cube.device.type == "cpu":
-        return ipc_rev2_plain(cube, _planes_view(kernel, na, th), gain)
+        return ipc_rev2_plain(cube, _planes_view(kernel, cube.shape[-1], th), gain)
     global stream_launches
-    ngrp, planes = _require_inputs(cube, kernel, gain, na, th)
-    out = torch.empty_like(cube)
-    lib = cuda_build.library("ipc_slab.cu")
-    with torch.cuda.device(cube.device):
-        err = lib.ipc_slab_stream_launch(
-            *_slab_args(cube, out, planes, gain, ngrp, na),
-            cuda_build.stream_ptr(cube),
-        )
-    cuda_build.check(err, "ipc_slab_stream_launch")
+    out = _cube(cube, kernel, gain, th)
     stream_launches += 1
     return out
 
@@ -247,19 +342,10 @@ def correct_cube_plain(data, kernel, gain=None, nborder=None, th=8):
     return out
 
 
-def correct_cube_fused(data, kernel, gain=None, nborder=None, th=8):
-    """IPC-deconvolve the active region of a (ngrp, ny, ny) float32
-    frame cube; the ``nborder``-wide border passes through unchanged.
-    ``kernel`` and ``gain`` cover the active region, as for
-    :func:`ipc_rev2_cube_blocked`.  Returns a new tensor.
-
-    On a CUDA tensor this is one launch of the blocked kernel on the
-    frame in place: the active view is read through the frame's row
-    pitch, the result lands in the output frame's active region, and
-    extra thread blocks of the same launch copy the border."""
-    if data.device.type == "cpu":
-        return correct_cube_plain(data, kernel, gain, nborder, th)
-    global blocked_launches, fused_launches
+def _correct_frame(data, kernel, gain, nborder, th):
+    """One launch on the frame in place: the active view read through
+    the frame's row pitch, the result in the output frame's active
+    region, the border copied by extra CTAs of the same launch."""
     nb = _nborder(data, kernel, nborder)
     ngrp, ny, _ = data.shape
     na = ny - 2 * nb
@@ -270,16 +356,37 @@ def correct_cube_fused(data, kernel, gain=None, nborder=None, th=8):
     planes = _planes_view(kernel, na, th)
     _check_gain(gain, na)
     out = torch.empty_like(data)
-    src = data[:, nb : ny - nb, nb : ny - nb]
-    dst = out[:, nb : ny - nb, nb : ny - nb]
-    lib = cuda_build.library("ipc_slab.cu")
-    with torch.cuda.device(data.device):
-        err = lib.ipc_slab_blocked_launch(
-            *_slab_args(src, dst, planes, gain, ngrp, na),
-            data.data_ptr(), out.data_ptr(), ny, nb,
-            cuda_build.stream_ptr(data),
-        )
-    cuda_build.check(err, "ipc_slab_blocked_launch")
+    act = (slice(None), slice(nb, ny - nb), slice(nb, ny - nb))
+    _launch(data[act], out[act], planes, gain, data, out, nb)
+    return out
+
+
+def correct_cube_fused(data, kernel, gain=None, nborder=None, th=8):
+    """IPC-deconvolve the active region of a (ngrp, ny, ny) float32
+    frame cube; the ``nborder``-wide border passes through unchanged.
+    ``kernel`` and ``gain`` cover the active region, as for
+    :func:`ipc_rev2_cube_blocked`.  Returns a new tensor.
+
+    On a CUDA tensor this is one launch on the frame in place: the
+    active view is read through the frame's row pitch, the result lands
+    in the output frame's active region, and extra thread blocks of the
+    same launch copy the border."""
+    if data.device.type == "cpu":
+        return correct_cube_plain(data, kernel, gain, nborder, th)
+    global blocked_launches, fused_launches
+    out = _correct_frame(data, kernel, gain, nborder, th)
     blocked_launches += 1
     fused_launches += 1
+    return out
+
+
+def correct_cube_stream(data, kernel, gain=None, nborder=None, th=8):
+    """:func:`correct_cube_fused` over the streaming entry point: the
+    ``pallas-stream`` route's frame form, one launch counted as one of
+    :func:`ipc_rev2_cube_stream`."""
+    if data.device.type == "cpu":
+        return correct_cube_plain(data, kernel, gain, nborder, th)
+    global stream_launches
+    out = _correct_frame(data, kernel, gain, nborder, th)
+    stream_launches += 1
     return out

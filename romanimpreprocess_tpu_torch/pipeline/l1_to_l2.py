@@ -21,7 +21,7 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 ``LIN_BACKEND`` and ``SKY_BACKEND`` keys choose between the
 hand-written CUDA kernels and their plain PyTorch versions
 (:func:`..config.resolve_backend`; for the IPC inverse, which has a
-frame kernel and two slab kernels, :func:`..config.resolve_ipc_backend`).
+frame kernel and a slab kernel, :func:`..config.resolve_ipc_backend`).
 ``romancal_ramp_fit: True`` swaps the ramp fit for the likelihood
 fitter (:mod:`..ops.likely`), which adds ``dumo`` and ``chisq`` to the
 product.  DQ planes are int32 bit patterns on the device and uint32
@@ -106,9 +106,10 @@ WFI18_DEFAULT_TAUS = (150.0, 1300.0)
 #: ``th`` of the pre-padded slab kernel planes the slab IPC routes stage
 #: (the reference's choice; here it only names the buffer's geometry)
 SLAB_TH = 32
-#: the core's IPC routes that read ``arr["ipc_kernel_padded"]``: the two
-#: slab kernels and their plain twin ('slab-plain' is set only by tests
-#: and checks on ``prep["cfg"]["ipc"]``; no config key selects it)
+#: the core's IPC routes that read ``arr["ipc_kernel_padded"]``: the slab
+#: kernel's two entry points and their plain twin ('slab-plain' is set
+#: only by tests and checks on ``prep["cfg"]["ipc"]``; no config key
+#: selects it)
 SLAB_ROUTES = ("slab", "slab-stream", "slab-plain")
 
 
@@ -264,12 +265,9 @@ def make_core(plan, cfg, geom):
                     data.contiguous(), kp, gain=gain_act, nborder=nb,
                     th=SLAB_TH)
             elif route == "slab-stream":
-                corr = ipc_slab.ipc_rev2_cube_stream(
-                    data[:, act[0], act[1]].contiguous(), kp, gain=gain_act,
+                data = ipc_slab.correct_cube_stream(
+                    data.contiguous(), kp, gain=gain_act, nborder=nb,
                     th=SLAB_TH)
-                data = data.clone()
-                data[:, act[0], act[1]] = corr
-                del corr
             else:
                 data = ipc_slab.correct_cube_plain(
                     data, kp, gain=gain_act, nborder=nb, th=SLAB_TH)
@@ -699,7 +697,7 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         # 'cuda' = the hand-written kernel, 'xla' = its plain version;
         # 'auto' is the kernel on a CUDA device.  ipc: 'cuda' / 'xla'
         # (the frame kernel and its twin), 'slab' / 'slab-stream' (the
-        # blocked and streaming slab kernels)
+        # slab kernel through its blocked and streaming entry points)
         ipc=resolve_ipc_backend(config, device),
         lin=resolve_backend(config, "LIN_BACKEND", device),
         med=resolve_backend(config, "SKY_BACKEND", device),

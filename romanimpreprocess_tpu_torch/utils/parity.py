@@ -1,0 +1,201 @@
+"""The slice's parity gates, as functions that raise.
+
+The port's products are held to the JAX package on the CPU and, on the
+card, the port's own paths to each other.  These are the rules, in one
+place, for the checks that run where JAX is not installed (the GPU
+machine): ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+
+- :func:`compare_outputs`: two L1 -> L2 core outputs (``to_host`` dicts:
+  ``slope``, ``pdq``, ``skycoefs`` ...; with the likelihood fit also
+  ``dumo`` and ``chisq``).  DQ bit for bit except JUMP_DET on at most
+  1e-4 of the pixels; the maps within rtol 1e-5 + atol 1e-5 max|ref|
+  (a pixel whose JUMP_DET differs may fit another slope); ``skycoefs``
+  and ``medsky`` within rtol 1e-4; ``endslice`` exact; ``dumo`` and
+  ``chisq`` after the cast to float16 within one float16 ulp + atol 1e-5
+  max|ref| on at least 99.9% of the pixels.  These are the gates of
+  ``tests/test_torch_l1_to_l2.py`` against the JAX package.
+- :func:`compare_moments`: two samplers' resultants over several seeds
+  (the RNG streams differ): per group the mean over pixels of the seed
+  mean, and of the seed variance, within 4 sigma of their sampling
+  error (``tests/test_torch_sim.py``).
+- :func:`sim_envelope`: a simulated exposure through ``calibrateimage``
+  at 120^2 active pixels recovers its scene and its cosmic rays, at the
+  JAX package's gates (``tests/test_workflow.py``, ``test_run_all.py``).
+"""
+
+import numpy as np
+
+JUMP_DET = 4
+MAPS = ("slope", "slope_withsky", "slope_err_read", "slope_err_poisson")
+FLOAT16 = ("dumo", "chisq")
+
+
+class ParityError(AssertionError):
+    pass
+
+
+def _require(cond, what):
+    if not cond:
+        raise ParityError(what)
+
+
+def compare_outputs(ref, got, what):
+    """Hold the core outputs ``got`` to ``ref``; returns what was
+    measured (largest differences, shares outside, bit equality)."""
+    _require(set(got) == set(ref), f"{what}: outputs {sorted(got)} vs {sorted(ref)}")
+    diff = ref["pdq"] ^ got["pdq"]
+    _require(not (diff & ~np.uint32(JUMP_DET)).any(),
+             f"{what}: DQ differs beyond JUMP_DET")
+    jump = diff != 0
+    rep = {"jump_det_diff_frac": float(jump.mean())}
+    _require(rep["jump_det_diff_frac"] <= 1e-4,
+             f"{what}: JUMP_DET differs on {rep['jump_det_diff_frac']} of pixels")
+    for k in MAPS:
+        r, g = ref[k], got[k]
+        ok = np.abs(g - r) <= 1e-5 * np.abs(r) + 1e-5 * np.abs(r).max()
+        rep[k + "_max_abs_err"] = float(np.abs(g - r).max())
+        _require(bool((ok | jump).all()),
+                 f"{what}: {k} differs by {rep[k + '_max_abs_err']}")
+    sr, sg = ref["skycoefs"], got["skycoefs"]
+    _require(np.allclose(sg, sr, rtol=1e-4, atol=1e-4 * np.abs(sr).max(initial=0.0)),
+             f"{what}: skycoefs {sg} vs {sr}")
+    _require(np.allclose(got["medsky"], ref["medsky"], rtol=1e-4),
+             f"{what}: medsky {got['medsky']} vs {ref['medsky']}")
+    _require(np.array_equal(got["endslice"], ref["endslice"]), f"{what}: endslice")
+    for k in FLOAT16:
+        if k not in ref:
+            continue
+        r = np.asarray(ref[k]).astype(np.float16)
+        g = np.asarray(got[k]).astype(np.float16)
+        ulp = np.spacing(np.maximum(np.abs(r), np.abs(g))).astype(np.float32)
+        r32, g32 = r.astype(np.float32), g.astype(np.float32)
+        ok = np.abs(g32 - r32) <= ulp + 1e-5 * np.abs(r32).max()
+        rep[k + "_outside_frac"] = float(1.0 - ok.mean())
+        _require(ok.mean() >= 0.999,
+                 f"{what}: {k} outside one float16 ulp on {rep[k + '_outside_frac']}")
+    rep["bit_exact"] = all(np.array_equal(ref[k], got[k]) for k in ref)
+    return rep
+
+
+def compare_moments(a, b, what):
+    """``a``, ``b``: (nseed, ngrp, ny, nx) resultants of two samplers on
+    one rate map.  Returns the largest deviations in units of sigma."""
+    nseed, ngrp = a.shape[:2]
+    npix = a.shape[2] * a.shape[3]
+    va, vb = a.var(axis=0, ddof=1), b.var(axis=0, ddof=1)
+    worst_mean = worst_var = 0.0
+    for j in range(ngrp):
+        dmean = (a.mean(axis=0)[j] - b.mean(axis=0)[j]).mean()
+        sig = np.sqrt((va[j].mean() + vb[j].mean()) / (nseed * npix))
+        # Var(s^2) = 2 sigma^4 / (n - 1) for each pixel and sampler
+        v = 0.5 * (va[j].mean() + vb[j].mean())
+        sig_v = v * np.sqrt(2 * 2.0 / ((nseed - 1) * npix))
+        worst_mean = max(worst_mean, abs(dmean) / sig)
+        worst_var = max(worst_var, abs(va[j].mean() - vb[j].mean()) / sig_v)
+    rep = {"mean_dev_sigma": float(worst_mean), "var_dev_sigma": float(worst_var)}
+    _require(worst_mean < 4 and worst_var < 4, f"{what}: moments differ: {rep}")
+    return rep
+
+
+def sim_envelope(l2, l1, expected, what):
+    """``l2``, ``l1``: the ``roman`` trees of a simulated exposure (120^2
+    active pixels) and its calibration; ``expected``: the scene's rate
+    through the gain, DN/s.  Slope recovery and the cosmic-ray envelope
+    and recall."""
+    dq = np.asarray(l2["dq"])
+    good = dq == 0
+    x = np.where(good, np.asarray(l2["data_withsky"]) - expected, 0.0)
+    xs = np.where(good, np.asarray(l2["data"]) - expected, 0.0)
+    ndet = int(((dq & JUMP_DET) != 0).sum())
+    truth = (np.asarray(l1["resultantdq"]) & JUMP_DET).any(axis=0)
+    rep = {"good_frac": float(good.mean()), "median_resid": float(np.median(x[good])),
+           "outliers_gt5": int((np.abs(x) > 5).sum()),
+           "median_resid_nosky": float(np.median(xs[good])), "jump_det": ndet,
+           "cr_truth_pixels": int(truth.sum()),
+           "cr_recall": float(((dq & JUMP_DET) != 0)[truth].mean()) if truth.any() else 0.0}
+    _require(rep["good_frac"] > 0.8 and 0.15 < rep["median_resid"] < 0.45
+             and rep["outliers_gt5"] < 20 and abs(rep["median_resid_nosky"]) < 0.1,
+             f"{what}: slope recovery {rep}")
+    # ~14 flagged pixels expected at 120^2 (8e-6 /pix/s, 13 live reads)
+    _require(2 <= ndet <= 60 and rep["cr_truth_pixels"] >= 2 and rep["cr_recall"] > 0.5,
+             f"{what}: cosmic rays {rep}")
+    return rep
+
+
+def plain_devices(d, ref="cpu", dev="cuda", nside=128, nseed=8):
+    """The port's plain path (every backend ``xla`` / ``dot``) on ``dev``
+    held to the same path on ``ref``, in directory ``d``: a synthetic
+    ``nside``^2 CALDIR (seed 5) and 6-group L1 (the port's ``synth``)
+    through ``calibrateimage`` with the classic fit and, through the
+    core with the slab route's twin, the likelihood fit, at
+    :func:`compare_outputs`; the sim's resultants over ``nseed`` seeds at
+    :func:`compare_moments`, and one exposure from a 5-star scene (seed
+    200) through sim -> L1 -> L2 on each device at :func:`sim_envelope`.
+    On ``dev`` other library kernels run (matrix products, solves,
+    reductions), so this is what holds the card's plain path, and with
+    it every kernel held to that path, to the CPU's, which the CPU tests
+    hold to the JAX package.  Returns what was measured."""
+    from .. import synth
+    from ..config import pattern_to_reads
+    from ..io import asdf_lite, calfiles, fits_lite
+    from ..ops import ipc_slab, rand
+    from ..pipeline import l1_to_l2, sim_to_l1
+
+    rp = synth.READ_PATTERN_DEFAULT
+    nb = 4
+    caldir = synth.make_cal_files(d + "/cal", rp, nside=nside, seed=5)
+    cal = synth.synth_cal_arrays(nside, rp, seed=5)
+    synth.write_l1_file(d + "/L1.asdf",
+                        synth.synth_l1_cube(cal, rp, rate_dn_s=10.0, nborder=nb),
+                        rp, amp33=synth.synth_amp33(nside, len(rp), nb))
+    base = {"IN": d + "/L1.asdf", "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True,
+            "IPC_BACKEND": "xla", "LIN_BACKEND": "xla", "SKY_BACKEND": "xla"}
+    devs = (ref, dev)
+    rep = {}
+
+    classic = {x: l1_to_l2.calibrateimage(dict(base, OUT=d + f"/L2_{i}.asdf"),
+                                          device=x, return_arrays=True)
+               for i, x in enumerate(devs)}
+    rep["classic"] = compare_outputs(classic[ref], classic[dev],
+                                     f"classic fit, {dev} vs {ref}")
+
+    pack = calfiles.load_caldir_cached(caldir)
+    l1 = asdf_lite.open(base["IN"])["roman"]
+    likely = {}
+    for x in devs:
+        prep = l1_to_l2.prepare_inputs(l1, dict(base, romancal_ramp_fit=True), pack,
+                                       device=x)
+        prep["cfg"]["ipc"] = "slab-plain"
+        prep["arr"]["ipc_kernel_padded"] = l1_to_l2.stage(
+            ipc_slab.kernel_planes_padded(pack.ipc_kernel, th=l1_to_l2.SLAB_TH), x)
+        core = l1_to_l2.make_core(prep["plan"], prep["cfg"], prep["geom"])
+        likely[x] = l1_to_l2.to_host(core(prep["arr"]))
+    rep["likely_slab_plain"] = compare_outputs(
+        likely[ref], likely[dev], f"likelihood fit (slab twin), {dev} vs {ref}")
+
+    na = nside - 2 * nb
+    yy, xx = np.mgrid[:na, :na]
+    rate = (2.0 + 10.0 * xx / na + 40.0 * np.exp(
+        -0.5 * ((xx - 20) ** 2 + (yy - 30) ** 2) / 9.0)).astype(np.float32)
+    res = {x: np.stack([sim_to_l1.make_l1_fullcal(
+        rand.sim_generator(100 + s, x), rate, rp, pack)[0].cpu().numpy()
+        for s in range(nseed)]).astype(np.float64) for x in devs}
+    rep["sim_moments"] = compare_moments(res[dev], res[ref],
+                                         f"sim resultants, {dev} vs {ref}")
+
+    scene = synth.make_scene_file(d + "/truth_F184_163_4.fits", nside_active=na,
+                                  nstars=5)
+    truth = fits_lite.open_fits(scene)[0].data[::-1, :]  # SCA 4: vertical flip
+    expected = truth / pack.gain[nb:-nb, nb:-nb] / 139.8  # the scene's exposure time
+    for i, x in enumerate(devs):
+        c1 = {"IN": scene, "OUT": d + f"/L1_sim_{i}.asdf", "READS": pattern_to_reads(rp),
+              "CALDIR": caldir, "SEED": 200, "IPC_BACKEND": "xla",
+              "PINK_BACKEND": "xla", "CONTRACT_BACKEND": "dot"}
+        sim_to_l1.run_config(c1, device=x)
+        c2 = dict(base, IN=c1["OUT"], OUT=d + f"/L2_sim_{i}.asdf",
+                  FITSWCS=c1["OUT"][:-5] + "_asdf_wcshead.txt")
+        l1_to_l2.calibrateimage(c2, device=x)
+        rep[f"sim_envelope_{x}"] = sim_envelope(
+            asdf_lite.open(c2["OUT"])["roman"], asdf_lite.open(c1["OUT"])["roman"],
+            expected, f"sim -> L1 -> L2 on {x}")
+    return rep

@@ -10,16 +10,18 @@ run it without the conftest:
 Tolerances: the kernels repeat their plain twins' rounded steps in the
 same order (no FMA contraction), so linearity (cube and DQ), the block
 nanmedian (every size branch: clusters of 1 to 8 CTAs and the streaming
-kernel; also against ``np.nanmedian``), the read contraction, the forward IPC, the three slab IPC
-inverses (against the twin and against each other) and the L1 -> L2
-product are held bit for bit; the frame IPC inverse is held to 1e-5 of the
+kernel; also against ``np.nanmedian``), the read contraction, the forward
+IPC, the slab IPC inverse behind its four entry points (against the twin
+and against each other) and the L1 -> L2 product are held bit for bit; the frame IPC inverse is held to 1e-5 of the
 largest value, the JAX package's own gate for its Pallas kernel.  The
 pink transform (the wgmma path and, below length 2^16, the mma.sync
 path) shares its twin's cast points and sums in another order:
 difference std < 1e-2 and max < 5e-2 of the frame std (the JAX
 package's gate for its two paths).  The sim with kernels against the
 plain sim, one seed: within 1 DN on every pixel (the pink frames differ
-in their last bits before the rounding to integer DN).
+in their last bits before the rounding to integer DN).  The plain path
+on the card against the plain path on the CPU: the slice's parity gates
+(``utils/parity.py``).
 """
 
 import warnings
@@ -36,6 +38,7 @@ from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc, ipc_cuda,
                                              linearity_cuda, median_cuda, pink,
                                              pink_cuda, sky)
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
+from romanimpreprocess_tpu_torch.utils import parity
 
 torch.set_num_threads(1)
 
@@ -246,8 +249,15 @@ def test_ipc_fwd_cuda_bit_identical(cuda_device, ngrp, na):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ngrp,na,th,with_gain,padded", [
     (3, 96, 16, True, True), (1, 100, 8, False, False), (2, 100, 16, True, False),
-    (2, 131, 32, False, True)])
+    (2, 131, 32, False, True),
+    # group counts above one register chunk, a frame narrower than one
+    # warp strip, sizes that are multiples of neither strip nor segment
+    (9, 67, 32, True, True), (17, 131, 8, False, False), (2, 20, 8, True, False),
+    (6, 1000, 32, True, True), (9, 1000, 16, False, True)])
 def test_ipc_slab_cuda_bit_identical(cuda_device, ngrp, na, th, with_gain, padded):
+    """The slab kernel behind its four entry points (cube: blocked,
+    streaming; frame: fused, streaming route) against the twin, bit for
+    bit; one launch counted per call, on the entry's own counter."""
     rng = np.random.RandomState(na + ngrp)
     nb, nside = 4, na + 8
     K = rng.uniform(0, 0.02, (3, 3, na, na)).astype(np.float32)
@@ -265,18 +275,22 @@ def test_ipc_slab_cuda_bit_identical(cuda_device, ngrp, na, th, with_gain, padde
     blocked = ipc_slab.ipc_rev2_cube_blocked(cube, kern, g, th=th)
     stream = ipc_slab.ipc_rev2_cube_stream(cube, kern, g, th=th)
     fused = ipc_slab.correct_cube_fused(data, kern, g, nborder=nb, th=th)
+    sframe = ipc_slab.correct_cube_stream(data, kern, g, nborder=nb, th=th)
     torch.cuda.synchronize()
     assert (ipc_slab.blocked_launches, ipc_slab.stream_launches,
-            ipc_slab.fused_launches) == (n0[0] + 2, n0[1] + 1, n0[2] + 1)
+            ipc_slab.fused_launches) == (n0[0] + 2, n0[1] + 2, n0[2] + 1)
     ref = ipc_slab.ipc_rev2_plain(
         cube, torch.from_numpy(K).to(cuda_device).reshape(9, na, na), g)
     assert torch.equal(blocked, ref) and torch.equal(stream, ref)
-    assert torch.equal(fused, ipc_slab.correct_cube_plain(data, kern, g, nborder=nb, th=th))
+    frame = ipc_slab.correct_cube_plain(data, kern, g, nborder=nb, th=th)
+    assert torch.equal(fused, frame) and torch.equal(sframe, frame)
     assert torch.equal(fused[:, nb:-nb, nb:-nb], blocked)
     assert torch.equal(fused[:, :nb], data[:, :nb])
     assert torch.equal(fused[:, :, -nb:], data[:, :, -nb:])
     with pytest.raises(ValueError, match="contiguous"):
         ipc_slab.ipc_rev2_cube_blocked(data[:, nb:-nb, nb:-nb], kern, g, th=th)
+    with pytest.raises(ValueError, match="contiguous"):
+        ipc_slab.correct_cube_stream(data.transpose(1, 2), kern, g, nborder=nb, th=th)
     if padded:
         with pytest.raises(ValueError, match="slab geometry"):
             ipc_slab.ipc_rev2_cube_stream(cube, kern, g, th=2 * th)
@@ -320,6 +334,23 @@ def test_calibrateimage_likelihood_slab_routes_match(cuda_device, tmp_path):
         np.testing.assert_array_equal(a[k], p[k], err_msg=k)
     im = asdf_lite.open(d + "/a.asdf")["roman"]
     assert im["dumo"].dtype == np.float16 and im["chisq"].dtype == np.float16
+
+
+@pytest.mark.cuda
+def test_plain_path_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """The port's plain path (every backend ``xla`` / ``dot``) on the card
+    against the same path on the CPU, 128^2 (``parity.plain_devices``):
+    on the card other library kernels run (batched matrix products,
+    ``torch.linalg.solve``, reductions).  The classic fit through
+    ``calibrateimage`` and the likelihood fit through the core with the
+    slab route's twin at the slice's gates; the sim at its moment gates
+    (8 seeds) and its envelope gates through sim -> L1 -> L2 on each
+    device (the two RNG streams differ)."""
+    rep = parity.plain_devices(str(tmp_path), "cpu", cuda_device)
+    assert set(rep) == {"classic", "likely_slab_plain", "sim_moments",
+                        "sim_envelope_cpu", "sim_envelope_cuda"}
+    assert rep["classic"]["jump_det_diff_frac"] <= 1e-4
+    assert rep["sim_moments"]["mean_dev_sigma"] < 4
 
 
 # (transforms, length, wgmma path): 2^14 and 2^15 take the mma.sync

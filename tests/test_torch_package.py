@@ -91,7 +91,7 @@ def test_nothing_is_built_at_import():
     ("pallas-frame", "cuda", "cuda"),
 ])
 def test_resolve_backend(value, dev, want):
-    # the L1 -> L2 IPC inverse: each Pallas name has its own kernel
+    # the L1 -> L2 IPC inverse: each Pallas name has its own entry point
     assert config.resolve_ipc_backend({"IPC_BACKEND": value}, dev) == want
     # a key with one kernel: every kernel name selects it
     one = "cuda" if want.startswith("slab") else want

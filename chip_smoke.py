@@ -7,17 +7,19 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit; the kernels are built from
    ``romanimpreprocess_tpu_torch/csrc`` into ``build/torch_ext/``.
-2. kernels: each hand-written CUDA kernel (linearity, IPC frame inverse,
-   block nanmedian, forward IPC, pink-noise transform, read
-   contraction, and the slab-layout IPC inverse behind its three entry
-   points: blocked, streaming, fused full frame) against its plain
+2. kernels: each hand-written CUDA kernel (linearity, block nanmedian,
+   forward IPC, pink-noise transform, read contraction, and the
+   row-streaming IPC inverse: in the slab order behind its three entry
+   points, blocked, streaming, fused full frame, and in the Neumann
+   order as the frame inverse of the auto route) against its plain
    PyTorch version on the card, at the main paths' shapes (4096^2 x 6
    groups; the 4088^2 active frame; 14 reads; 102 transforms of 2^20)
    and at small ragged shapes that take every size branch (the block
    nanmedian's clusters of 1, 2, 4 and 8 CTAs and its streaming kernel,
    on noise and on duplicates, signed zeros and infinities; the pink
-   transform's wgmma and mma.sync paths; the slab kernel's group chunks,
-   strips and segments);
+   transform's wgmma and mma.sync paths; the IPC kernel's group chunks,
+   strips and segments, and the frame inverse at nborder 4, 2 and 0 and
+   with a NaN and infinities in the border rows and columns it reads);
    CUDA-event medians of the kernel, the plain version and, where one
    exists, a single PyTorch call computing the same function; the least
    time the card could take (bytes over the memory rate, operations
@@ -34,7 +36,7 @@ Phases, each printing one JSON line:
    the L2 checked (finite, DQ populated, injected rate recovered) and
    held against the plain path on the card (every backend ``xla``);
    the warm core timed with CUDA events, kernels and plain path in
-   turns.
+   turns, and profiled (the ``ipc`` stage's device time printed).
 5. main path, L1 -> L2 with the likelihood fit: the same CALDIR and L1
    through ``calibrateimage`` with ``romancal_ramp_fit: True``, once
    with ``IPC_BACKEND: pallas`` (the slab kernel through the blocked
@@ -43,7 +45,9 @@ Phases, each printing one JSON line:
    and ``chisq`` checked; the two L2 trees held bit for bit against each
    other and against the plain route (the slab twin, ``LIN``/``SKY``
    ``xla``), and within the slice tolerances against the frame route
-   (``pallas-frame``); the warm core timed and profiled.
+   (``pallas-frame``), whose core outputs are held bit for bit against
+   its own plain route (the frame twin, ``IPC``/``LIN``/``SKY``
+   ``xla``); the warm core timed and profiled.
 6. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
    through ``sim_to_l1.run_config`` on ``cuda`` (6 groups, 14 reads;
    ``IPC_BACKEND``/``PINK_BACKEND`` ``auto``, ``CONTRACT_BACKEND:
@@ -132,8 +136,10 @@ def cuda_ms(fn, runs=10, warmup=2):
     return statistics.median(times)
 
 
-L2_KERNEL_NAMES = ("linearity_kernel", "ipc_rev2_frame_kernel",
-                   "block_nanmedian", "ipc_slab_kernel")
+#: substrings of the port's kernel names in a profile: the frame inverse
+#: (B) is ipc_slab_kernel<G, NeumannOrder>, the slab entries (4-6)
+#: ipc_slab_kernel<G, SlabOrder>
+L2_KERNEL_NAMES = ("linearity_kernel", "NeumannOrder", "block_nanmedian", "SlabOrder")
 SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_", "contract_kernel")
 
 
@@ -233,20 +239,6 @@ def lin_inputs(shape, ncoef, gen, dev):
     return S, lin, attempt
 
 
-def ipc_inputs(ngrp, nside, gen, dev):
-    import torch
-
-    na = nside - 2 * NB
-    planes = torch.zeros((9, nside, nside), device=dev)
-    planes[:, NB:-NB, NB:-NB] = torch.rand((9, na, na), generator=gen,
-                                           device=dev) * 0.02
-    planes[4, NB:-NB, NB:-NB] = 1.0 - (planes[:, NB:-NB, NB:-NB].sum(0)
-                                       - planes[4, NB:-NB, NB:-NB])
-    data = torch.rand((ngrp, nside, nside), generator=gen, device=dev) * 1000.0
-    gain = 1.4 + 0.2 * torch.rand((nside, nside), generator=gen, device=dev)
-    return data, planes.contiguous(), gain
-
-
 def med_inputs(ny, nx, N, gen, dev, nan_frac=0.05, edges=False):
     """A noise frame with NaNs and one all-NaN block.  ``edges``: values
     drawn from (-inf, -1, -0.0, +0.0, 1, +inf) instead, so that the
@@ -305,33 +297,40 @@ def check_lin(shape, gen, dev, timed, card):
     return res
 
 
-def check_ipc(ngrp, nside, gen, dev, timed, card):
+def check_ipc(ngrp, nside, gen, dev, timed, card, nb=NB, nonfinite=False):
+    """The frame inverse (the IPC kernel in the Neumann order) against
+    its twin, bit for bit, on ``time_frame.inputs`` (``nonfinite``: a
+    NaN and infinities in the outermost border rows and columns it
+    reads, which reach the output through their zero weights in both)."""
     import torch
 
     from romanimpreprocess_tpu_torch.ops import ipc_cuda
+    from romanimpreprocess_tpu_torch.utils.time_frame import inputs, same_bits
 
-    data, planes, gain = ipc_inputs(ngrp, nside, gen, dev)
-    got = ipc_cuda.ipc_rev2_frame(data, planes, gain, nborder=NB)
-    ref = ipc_cuda.ipc_rev2_frame_plain(data, planes, gain, nborder=NB)
+    data, planes, gain = inputs(ngrp, nside, nb, gen, nonfinite)
+    na = nside - 2 * nb
+    got = ipc_cuda.ipc_rev2_frame(data, planes, gain, nborder=nb)
+    ref = ipc_cuda.ipc_rev2_frame_plain(data, planes, gain, nborder=nb)
     torch.cuda.synchronize()
+    what = f"ipc {ngrp}x{nside} nborder {nb} nonfinite={nonfinite}"
     border = torch.ones((nside, nside), dtype=torch.bool, device=dev)
-    border[NB:-NB, NB:-NB] = False
-    require(torch.equal(got[:, border], data[:, border]),
-            f"ipc {nside}: border not passed through")
-    err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    # the kernel repeats the plain version's rounded steps in its order,
-    # so it should be bit-exact; the gate is 1e-5 of scale, the JAX
-    # package's own gate for its Pallas kernel
-    require(err <= 1e-5 * scale, f"ipc {nside}: err {err} of {scale}")
-    res = {"shape": [ngrp, nside, nside], "max_abs_err": err,
-           "max_rel_err": err / scale, "bit_exact": bool(torch.equal(got, ref))}
+    border[nb : nside - nb, nb : nside - nb] = False
+    require(same_bits(got[:, border], data[:, border]),
+            f"{what}: border not passed through")
+    fin = torch.isfinite(ref)
+    err = (got - ref)[fin].abs().max().item()
+    scale = ref[fin].abs().max().item()
+    # the kernel repeats the plain version's rounded steps in its order
+    require(same_bits(got, ref), f"{what}: not bit-identical to the twin "
+            f"(max err {err} of {scale})")
+    require(bool(fin.all()) != nonfinite, f"{what}: non-finite values")
+    res = {"shape": [ngrp, nside, nside], "nborder": nb, "nonfinite": nonfinite,
+           "max_abs_err": err, "bit_exact": True}
     if timed:
-        res["ms"] = cuda_ms(lambda: ipc_cuda.ipc_rev2_frame(data, planes, gain, NB))
+        res["ms"] = cuda_ms(lambda: ipc_cuda.ipc_rev2_frame(data, planes, gain, nb))
         res["plain_ms"] = cuda_ms(lambda: ipc_cuda.ipc_rev2_frame_plain(
-            data, planes, gain, NB))
+            data, planes, gain, nb))
         res["library_ms"] = None  # no single PyTorch call computes it
-        na = nside - 2 * NB
         res["bound_ms"], res["bound_by"] = bound(
             ipc_cuda.bytes_moved(ngrp, nside), ngrp * na * na * 42, card)
     return res
@@ -624,7 +623,7 @@ KERNELS = {
         route="cuda", source="romanimpreprocess_tpu_torch/csrc/linearity.cu",
         replaces="romanimpreprocess_tpu/ops/linearity_pallas.py:70"),
     "ipc_rev2_frame": dict(
-        route="cuda", source="romanimpreprocess_tpu_torch/csrc/ipc_frame.cu",
+        route="cuda", source="romanimpreprocess_tpu_torch/csrc/ipc_slab.cu",
         replaces="romanimpreprocess_tpu/ops/ipc_pallas.py:425"),
     "block_nanmedian": dict(
         route="cuda", source="romanimpreprocess_tpu_torch/csrc/blockmed.cu",
@@ -664,8 +663,17 @@ def phase_kernels(card):
     small = {
         "linearity": [check_lin((NGRP, 128, 128), gen, dev, False, card),
                       check_lin((3, 120, 130), gen, dev, False, card)],
+        # group counts above one register chunk (9, 17), a frame
+        # narrower than one warp strip (20), nborder 2 and 0, and
+        # non-finite values in the border rows and columns read
         "ipc_rev2_frame": [check_ipc(NGRP, 128, gen, dev, False, card),
-                           check_ipc(3, 120, gen, dev, False, card)],
+                           check_ipc(3, 120, gen, dev, False, card, nonfinite=True),
+                           check_ipc(9, 131, gen, dev, False, card, nb=2),
+                           check_ipc(17, 67, gen, dev, False, card, nonfinite=True),
+                           check_ipc(1, 20, gen, dev, False, card),
+                           check_ipc(5, 130, gen, dev, False, card, nb=0),
+                           check_ipc(6, 1000, gen, dev, False, card, nb=2,
+                                     nonfinite=True)],
         # every size branch: clusters of 1, 2, 4 and 8 CTAs and the
         # streaming kernel, on noise and on duplicates / +-0 / +-inf
         "block_nanmedian": [
@@ -904,6 +912,10 @@ def phase_main(card, device, d, caldir, nside=NSIDE):
         res["profile_kernels"] = profile(lambda: core_k(prep["arr"]))
         res["profile_plain"] = profile(lambda: core_p(prep_p["arr"]))
         res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        ipc_ms = {k: res[k].get("stage_device_ms", {}).get("ipc")
+                  for k in ("profile_kernels", "profile_plain")}
+        print(f"classic core: ipc stage device time {ipc_ms['profile_kernels']} ms "
+              f"with the kernels, {ipc_ms['profile_plain']} ms plain", flush=True)
     emit(res)
     return launches, backends, l1path, rate
 
@@ -1022,6 +1034,20 @@ def phase_likely(card, device, d, caldir, l1path, rate, nside=NSIDE):
         require(np.array_equal(v, outs["pallas"][k]),
                 f"kernels vs plain route: core output {k} differs")
 
+    # ---- the frame route against its own plain route: the frame twin ----
+    cfg_f = dict(cfgs["pallas-frame"], IPC_BACKEND="xla", LIN_BACKEND="xla",
+                 SKY_BACKEND="xla")
+    prep_f = l1_to_l2.prepare_inputs(l1, cfg_f, pack, device=device)
+    out_f = l1_to_l2.to_host(l1_to_l2.make_core(prep_f["plan"], prep_f["cfg"],
+                                                prep_f["geom"])(prep_f["arr"]))
+    require(all(getattr(mod, attr) == 0 for mod, attr in counters.values()),
+            "the frame route's plain route launched a kernel")
+    require(set(out_f) == set(outs["pallas-frame"]), "frame plain route: other outputs")
+    for k, v in out_f.items():
+        require(np.array_equal(v, outs["pallas-frame"][k]),
+                f"frame route vs its plain route: core output {k} differs")
+    del prep_f, out_f
+
     # ---- against the frame route: another order of summation ----
     # The two routes round the corrected cube differently by an ulp or
     # two.  This exposure is a 10 DN/s slope on a pedestal of 1e4 DN, so
@@ -1044,6 +1070,7 @@ def phase_likely(card, device, d, caldir, l1path, rate, nside=NSIDE):
            "slope_over_rate_median": ratio, "slope_rate_corr": corr,
            "dumo_over_rate_median": dumo_ratio, **stats,
            "blocked_vs_stream_bit_exact": True, "kernels_vs_plain_bit_exact": True,
+           "frame_route_vs_plain_bit_exact": True,
            "slab_vs_frame_route": parity}
     del outs, out_p, trees, im, data, withsky
 

@@ -17,7 +17,9 @@ import yaml
 #: inverse of L1 -> L2 the three Pallas names of the JAX package keep
 #: their meaning, each with its own entry point (:func:`resolve_ipc_backend`):
 #: 'pallas' the blocked slab entry, 'pallas-stream' the streaming slab
-#: entry (one slab kernel serves both), 'pallas-frame' the frame kernel.  Elsewhere (linearity, sky,
+#: entry, 'pallas-frame' the frame inverse (one row-streaming kernel
+#: serves all three, the frame inverse in the reference's Neumann
+#: order).  Elsewhere (linearity, sky,
 #: the sim's forward IPC and pink noise) there is one kernel per key and
 #: every name selects it.
 KERNEL_NAMES = ("cuda", "pallas", "pallas-stream", "pallas-frame")
@@ -70,17 +72,17 @@ def resolve_ipc_backend(config, device):
     """Resolve ``IPC_BACKEND`` for the L1 -> L2 IPC inverse to the core's
     route, as the JAX package routes it:
 
-    - ``'cuda'``: the frame kernel ('cuda', 'pallas-frame', and 'auto'
+    - ``'cuda'``: the frame inverse ('cuda', 'pallas-frame', and 'auto'
       on a ``cuda`` device);
     - ``'slab'``: the slab kernel through its blocked fused full-frame
       form ('pallas');
     - ``'slab-stream'``: the slab kernel through its streaming
       full-frame form ('pallas-stream');
-    - ``'xla'``: the frame kernel's plain PyTorch version ('xla', and
+    - ``'xla'``: the frame inverse's plain PyTorch version ('xla', and
       'auto' elsewhere).
 
-    The slab kernel sums the inverse in another order than the frame
-    kernel, so the routes differ in the last bits.  On a CPU device a
+    The slab routes sum the inverse in another order than the frame
+    inverse, so the routes differ in the last bits.  On a CPU device a
     name that selects a kernel raises.
     """
     v = str(config.get("IPC_BACKEND", "auto")).lower()

@@ -1,33 +1,47 @@
 // Order-2 IPC inverse on an active-region cube: one row-streaming kernel
 // whose data path lives in registers, launched by every entry point (the
-// blocked and the streaming form, on the cube or on the full frame).
+// blocked and the streaming slab forms, on the cube or on the full frame,
+// and the frame inverse of the auto route).
 //
 // Replaces the TPU kernels of romanimpreprocess_tpu/ops/ipc_pallas.py:
 // ipc_rev2_cube_blocked (_ipc_kernel_blocked), ipc_rev2_cube_stream
-// (_ipc_kernel_stream) and the wrapper correct_cube_fused.  The TPU's two
-// traversals exist for its VMEM windows; they compute one function, and
-// here one __global__ computes it.  For every group of the (G, na, na)
-// cube
+// (_ipc_kernel_stream), the wrapper correct_cube_fused, and
+// ipc_rev2_frame_stream (_ipc_kernel_frame).  The TPU's traversals exist
+// for its VMEM windows; here one __global__ computes them, compiled for
+// two orders of summation (its Order parameter):
 //
+// SlabOrder (the slab entry points; twin ops/ipc_slab.py ipc_rev2_plain):
 //     y   = d * gain                      (y = d without a gain)
 //     a   = K y,   b = K a
 //     out = ((3 y - 3 a) + b) / gain
 //     (K x)[r, c] = sum_{t=0..8} x[r-dy, c-dx] * K_t[r-dy, c-dx],
 //                   (dy, dx) = (t / 3 - 1, t % 3 - 1)
+//   with the taps summed in the order t = 0..8 (the first product starts
+//   the sum) and sources outside the active region reading +0 (the zero
+//   pad of the TPU kernels' slab layout).
 //
-// with the weights indexed at the SOURCE pixel, the taps summed in the
-// order t = 0..8 (the first product starts the sum), and sources outside
-// the active region reading as +0 (the zero pad of the TPU kernels' slab
-// layout).  Every step is an explicit _rn intrinsic in the order of the
-// plain PyTorch twin (ops/ipc_slab.py ipc_rev2_plain): no FMA
-// contraction, so the kernel agrees with the twin bit for bit.
+// NeumannOrder (the frame inverse; twin ops/ipc_cuda.py
+// ipc_rev2_frame_plain, the reference's Neumann recursion):
+//     o1  = (y + y) - K y
+//     out = ((o1 + y) - K o1) / gain      on the active region
+//   with K's sum started by the centre tap (t = 4), then t = 0, 1, 2, 3,
+//   5, 6, 7, 8, and sources read from the frame: the walk reads EXT = 2
+//   rows and columns of the border around the active region (their
+//   weights are the zeros of kernel_planes_frame, but a NaN or inf there
+//   reaches the output as it does in the twin), +0 outside the frame.
+//   o1 outside the frame is +0, the twin's zero fill of its shifts.
+//
+// In both, the weights are indexed at the SOURCE pixel and every step is
+// an explicit _rn intrinsic in the order of the twin: no FMA
+// contraction, so the kernel agrees with its twin bit for bit.
 //
 // Every array comes with a row pitch (and the cube and the planes with a
 // group / plane stride), so the kernel reads
 //   - a contiguous active-region cube or the active view of a full frame,
-//   - the raw (3, 3, na, na) IPC kernel (pitch na) or the pre-padded
+//   - the raw (3, 3, na, na) IPC kernel (pitch na), the pre-padded
 //     (9, rows_in, width) slab buffer in place (offset th * width + 2,
-//     pitch width): no repack, no slice copy.
+//     pitch width), or the active view of the (9, nside, nside) frame
+//     planes: no repack, no slice copy.
 //
 // What bounds it: bytes.  Cube in and out, nine planes and the gain:
 // 4 * na^2 * (2 G + 9 + 1) = 1.47 GB at 6 groups of 4088^2, 0.44 ms at
@@ -36,14 +50,22 @@
 // design does about them:
 //
 // - A warp owns a strip of 64 columns, two adjacent ones a lane, and
-//   walks a segment of rows UPWARD (descending row index).  Rows reach a
-//   lane in the order the tap sum wants them: (K x)[R] takes its taps
-//   t = 0..2 from row R + 1, t = 3..5 from row R, t = 6..8 from row
-//   R - 1.  So when row s arrives its nine products y[s] * K_t[s] start
-//   a[s - 1], continue a[s] and finish a[s + 1]: two partial sums per
-//   group and column carry the window, no row of y or of the products
-//   is kept.  b runs one row behind on the finished a-row, with the
-//   weights of that row kept from the previous step.  The output of row
+//   walks a segment of rows UPWARD (descending row index).  (K x)[R]
+//   takes its taps t = 0..2 from row R + 1, t = 3..5 from row R, t =
+//   6..8 from row R - 1, so row s's nine products y[s] * K_t[s] continue
+//   or finish the sums of rows s - 1, s and s + 1, and a partial sum per
+//   group and column carries the window:
+//     SlabOrder: row s starts a[s - 1] (taps 0..2), continues a[s] (3..5)
+//       and finishes a[s + 1] (6..8): two partial sums.
+//     NeumannOrder: a[s] starts with its centre, which arrives with row
+//       s, AFTER row s + 1; so when row s arrives, a[s] takes its centre,
+//       then row s + 1's taps 0..2 formed again from y[s + 1] and K[s + 1]
+//       (kept for that; a product is one rounded multiply, so it has the
+//       same bits), then taps 3 and 5; row s's taps 6..8 finish a[s + 1].
+//       One partial sum, and 9 multiplies a row as in the slab order.
+//   b runs one row behind on the finished a-row (o1-row), with the
+//   weights of that row kept from the previous step (and, in the Neumann
+//   order, those of the row before, for taps 0..2).  The output of row
 //   s + 2 is written at step s.  No ring index is computed per tap.
 // - Horizontal taps: the product is formed at its source column (rounded
 //   there, as the twin rounds it); a lane's two columns are each other's
@@ -52,7 +74,7 @@
 //   0, 1, 62, 63 are halo: a warp writes 60 columns.
 // - Loads: each warp keeps DEPTH rows in flight beyond the one it
 //   computes in its own ring of shared memory, filled by cp.async (8
-//   bytes, a lane's column pair, zero-filled outside the region) and
+//   bytes, a lane's column pair, zero-filled outside what it reads) and
 //   read back by the lane that copied them, so no barrier either.
 // - Groups: the kernel is compiled for chunks of 1..8 groups held in
 //   registers; more groups take more chunks (a grid axis), each reading
@@ -67,7 +89,14 @@
 // a thread in flight, beside the one wave of segments.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
+
+// the orders of summation (tag types, so that a profile names the
+// instantiation)
+struct SlabOrder {};
+struct NeumannOrder {};
 
 struct Slab {
     const float* in;    // group 0, active row 0, active col 0
@@ -83,6 +112,7 @@ struct Slab {
     int g_pitch;
     int ngrp;
     int na;
+    int ext;            // rows and columns read around the active region
 };
 
 struct Border {
@@ -104,6 +134,7 @@ constexpr int BATCH = 16;                  // border pixels a thread loads at on
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int DEPTH = 3;                   // rows in flight beyond the one computed
 constexpr int RING = DEPTH + 1;            // rows of a warp's ring
+constexpr int EXT = 2;                     // border rows / columns the Neumann order reads
 
 // shared memory of a CTA: each warp's ring of RING rows of (10 + GC)
 // arrays of WIDTH floats
@@ -194,6 +225,13 @@ __device__ __forceinline__ float taps3(float acc, const float* v, int t0)
     return __fadd_rn(__fadd_rn(__fadd_rn(acc, v[t0]), v[t0 + 1]), v[t0 + 2]);
 }
 
+// the Neumann order's sum through tap 5: the centre, then taps 0, 1, 2,
+// 3, 5
+__device__ __forceinline__ float centre_to5(const float* v)
+{
+    return __fadd_rn(__fadd_rn(taps3(v[4], v, 0), v[3]), v[5]);
+}
+
 // The nine products of a lane's two columns (pe: column c, po: c + 1),
 // each formed at its source, as the terms of the two outputs: tap t
 // takes its source from column + 1 (t % 3 == 0), the column itself, or
@@ -214,11 +252,12 @@ __device__ __forceinline__ void to_terms(const float* pe, const float* po,
     }
 }
 
-template <int GC>
+template <int GC, class Order>
 __global__ void __launch_bounds__(NT, 3)
 ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
                 int border_ctas, int vec)
 {
+    constexpr bool NEUMANN = std::is_same<Order, NeumannOrder>::value;
     int blk = blockIdx.x;
     if (blk < border_ctas) {
         copy_border(q, p.ngrp, blk, border_ctas);
@@ -230,15 +269,16 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
     const int sg = blk % nseg;
     const int ch = blk / nseg;
 
-    const int na = p.na;
+    const int na = p.na, ext = p.ext;
     const int lane = threadIdx.x % LANES;
     const int strip = cx * WARPS + threadIdx.x / LANES;
     if (strip * STRIP >= na) return;  // the whole warp
     // the lane's columns c and c + 1 (c even within the strip); lanes 1
-    // to 30 write theirs, lanes 0 and 31 are halo
+    // to 30 write theirs, lanes 0 and 31 are halo.  in0 / in1: the
+    // column lies in the span the kernel reads, [-ext, na + ext)
     const int c = strip * STRIP - HALO + COLS * lane;
-    const bool in0 = c >= 0 && c < na;
-    const bool in1 = c >= 0 && c + 1 < na;
+    const bool in0 = c >= -ext && c < na + ext;
+    const bool in1 = c + 1 >= -ext && c + 1 < na + ext;
     const bool live = lane >= 1 && lane < LANES - 1;
     const bool emit0 = live && c < na;
     const bool emit1 = live && c + 1 < na;
@@ -247,11 +287,12 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
     const int rs = sg * seg;
     const int re = min(rs + seg, na);
 
-    const int cc = in0 ? c : 0;
+    // column offsets of the lane's two copies (0 where nothing is read),
+    // and the bytes of its 8-byte copy (with vec, in1 implies in0)
+    const int off0 = in0 ? c : 0, off1 = in1 ? c + 1 : 0;
     const int nbytes = in1 ? 8 : in0 ? 4 : 0;
-    const float* kcol = p.k + cc;
-    const float* gcol = p.gain ? p.gain + cc : p.k;
-    const float* dcol = p.in + (long long)g0 * p.in_gs + cc;
+    const float* gbase = p.gain ? p.gain : p.k;
+    const float* dbase = p.in + (long long)g0 * p.in_gs;
     // row s + 2 of the chunk's first group once moved up at step s
     float* orow = p.out + (long long)g0 * p.out_gs + c + (long long)(re + 4) * p.out_pitch;
 
@@ -260,49 +301,56 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
     // floats; each lane copies and reads its own two columns only
     extern __shared__ float ring_s[];
     float* ring = ring_s + (threadIdx.x / LANES) * (RING * (10 + GC) * WIDTH) + COLS * lane;
-    // one column pair of one array: one 8-byte copy where every array is
-    // 8-byte aligned at even columns (vec), else two 4-byte copies
-    auto copy2 = [&](float* dst, const float* src, int bytes) {
+    // one column pair of one array row: one 8-byte copy where every
+    // array is 8-byte aligned at even columns (vec), else two 4-byte
+    // copies; +0 where `on` is false
+    auto copy2 = [&](float* dst, const float* row, bool on) {
         if (vec) {
-            cp_async8(dst, src, bytes);
+            cp_async8(dst, row + off0, on ? nbytes : 0);
         } else {
-            cp_async4(dst, src, bytes >= 4 ? 4 : 0);
-            cp_async4(dst + 1, bytes == 8 ? src + 1 : src, bytes == 8 ? 4 : 0);
+            cp_async4(dst, row + off0, on && in0 ? 4 : 0);
+            cp_async4(dst + 1, row + off1, on && in1 ? 4 : 0);
         }
     };
-    // issue the copies of row r into slot i: +0 (zero fill) outside the
-    // region and outside the walk's rows [rs - 2, re + 1]
+    // issue the copies of row r into slot i: +0 outside the rows read,
+    // [-ext, na + ext), and outside the walk's rows [rs - 2, re + 1]
     auto issue = [&](int r, int i) {
-        const bool in = r >= 0 && r >= rs - 2 && r < na;
-        const int bytes = in ? nbytes : 0;
+        const bool in = r >= -ext && r < na + ext && r >= rs - 2;
         const long long rr = in ? r : 0;
         float* dst = ring + i * ((10 + GC) * WIDTH);
 #pragma unroll
         for (int t = 0; t < 9; ++t)
-            copy2(dst + t * WIDTH, kcol + t * p.k_ps + rr * p.k_pitch, bytes);
-        copy2(dst + 9 * WIDTH, gcol + rr * p.g_pitch, p.gain ? bytes : 0);
+            copy2(dst + t * WIDTH, p.k + t * p.k_ps + rr * p.k_pitch, in);
+        copy2(dst + 9 * WIDTH, gbase + rr * p.g_pitch, in && p.gain);
 #pragma unroll
         for (int j = 0; j < GC; ++j)
             copy2(dst + (10 + j) * WIDTH,
-                  dcol + (j < ng ? j : 0) * p.in_gs + rr * p.in_pitch,
-                  j < ng ? bytes : 0);
+                  dbase + (j < ng ? j : 0) * p.in_gs + rr * p.in_pitch, in && j < ng);
         cp_async_commit();
     };
 
-    // before step s, per group and column: an = a[s] (taps 0..2), am =
-    // a[s + 1] (0..5), bn = b[s + 1] (0..2), bm = b[s + 2] (0..5), y1 =
-    // y[s + 1], u = 3 y[s + 2] - 3 a[s + 2]; kp = K[s + 1], g1 / g2 the
-    // gain of rows s + 1 / s + 2.  Warm-up rows leave them defined, never
-    // stored.
-    float an[GC][COLS], am[GC][COLS], bn[GC][COLS], bm[GC][COLS];
-    float y1[GC][COLS], u[GC][COLS], kp[9][COLS];
+    // before step s, per group and column, in both orders: am = a[s + 1]
+    // (SlabOrder: taps 0..5; NeumannOrder: through tap 5), y1 = y[s + 1];
+    // kp = K[s + 1], g1 / g2 the gain of rows s + 1 / s + 2.
+    // SlabOrder: an = a[s] (taps 0..2), bn = b[s + 1] (0..2), bm = b[s +
+    // 2] (0..5), u = 3 y[s + 2] - 3 a[s + 2].
+    // NeumannOrder: bm = b[s + 2] through tap 5, y2 = y[s + 2], o1p =
+    // o1[s + 2]; kq = taps 0..2 of K[s + 2].
+    // Warm-up rows leave them defined, never stored.
+    float am[GC][COLS], bm[GC][COLS], y1[GC][COLS];
+    float an[GC][COLS], bn[GC][COLS], u[GC][COLS];     // SlabOrder
+    float y2[GC][COLS], o1p[GC][COLS], kq[3][COLS];    // NeumannOrder
+    float kp[9][COLS];
 #pragma unroll
     for (int j = 0; j < GC; ++j)
 #pragma unroll
         for (int h = 0; h < COLS; ++h)
-            an[j][h] = am[j][h] = bn[j][h] = bm[j][h] = y1[j][h] = u[j][h] = 0.f;
+            an[j][h] = am[j][h] = bn[j][h] = bm[j][h] = y1[j][h] = u[j][h]
+                = y2[j][h] = o1p[j][h] = 0.f;
 #pragma unroll
     for (int t = 0; t < 9; ++t) kp[t][0] = kp[t][1] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) kq[t][0] = kq[t][1] = 0.f;
     float g1[COLS] = {1.f, 1.f}, g2[COLS] = {1.f, 1.f};
 
 #pragma unroll
@@ -335,43 +383,85 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
             y[j][1] = __fmul_rn(d.y, gs[1]);
         }
 
-        const bool arow = s + 1 >= 0 && s + 1 < na;
+        // the finished a-row s + 1 is +0 outside the rows and columns read
+        const bool arow = s + 1 >= -ext && s + 1 < na + ext;
         const bool a0 = arow && in0, a1 = arow && in1;
         const bool store = s + 2 < re;
         orow -= p.out_pitch;
 #pragma unroll
         for (int j = 0; j < GC; ++j) {
-            float pe[9], po[9], ve[9], vo[9], af[COLS], bf[COLS];
+            float pe[9], po[9], ve[9], vo[9], af[COLS], bf[COLS], res[COLS];
+            if constexpr (NEUMANN) {
+                // row s + 1's taps 0..2 formed again, row s's taps 3..8
 #pragma unroll
-            for (int t = 0; t < 9; ++t) {
-                pe[t] = __fmul_rn(y[j][0], kc[t][0]);
-                po[t] = __fmul_rn(y[j][1], kc[t][1]);
-            }
-            to_terms(pe, po, ve, vo);
-            af[0] = taps3(am[j][0], ve, 6);           // a[s + 1] complete
-            af[1] = taps3(am[j][1], vo, 6);
-            am[j][0] = taps3(an[j][0], ve, 3);
-            am[j][1] = taps3(an[j][1], vo, 3);
-            an[j][0] = __fadd_rn(__fadd_rn(ve[0], ve[1]), ve[2]);
-            an[j][1] = __fadd_rn(__fadd_rn(vo[0], vo[1]), vo[2]);
-            af[0] = a0 ? af[0] : 0.f;                  // +0 outside
-            af[1] = a1 ? af[1] : 0.f;
+                for (int t = 0; t < 9; ++t) {
+                    pe[t] = __fmul_rn(t < 3 ? y1[j][0] : y[j][0], t < 3 ? kp[t][0] : kc[t][0]);
+                    po[t] = __fmul_rn(t < 3 ? y1[j][1] : y[j][1], t < 3 ? kp[t][1] : kc[t][1]);
+                }
+                to_terms(pe, po, ve, vo);
+                af[0] = taps3(am[j][0], ve, 6);           // a[s + 1] complete
+                af[1] = taps3(am[j][1], vo, 6);
+                am[j][0] = centre_to5(ve);                 // a[s] through tap 5
+                am[j][1] = centre_to5(vo);
+                // o1[s + 1] = (y + y) - a, +0 outside
+                af[0] = a0 ? __fsub_rn(__fadd_rn(y1[j][0], y1[j][0]), af[0]) : 0.f;
+                af[1] = a1 ? __fsub_rn(__fadd_rn(y1[j][1], y1[j][1]), af[1]) : 0.f;
+                // o1-row s + 2's taps 0..2 formed again, o1-row s + 1's 3..8
 #pragma unroll
-            for (int t = 0; t < 9; ++t) {
-                pe[t] = __fmul_rn(af[0], kp[t][0]);
-                po[t] = __fmul_rn(af[1], kp[t][1]);
+                for (int t = 0; t < 9; ++t) {
+                    pe[t] = __fmul_rn(t < 3 ? o1p[j][0] : af[0], t < 3 ? kq[t % 3][0] : kp[t][0]);
+                    po[t] = __fmul_rn(t < 3 ? o1p[j][1] : af[1], t < 3 ? kq[t % 3][1] : kp[t][1]);
+                }
+                to_terms(pe, po, ve, vo);
+                bf[0] = taps3(bm[j][0], ve, 6);           // b[s + 2] complete
+                bf[1] = taps3(bm[j][1], vo, 6);
+                bm[j][0] = centre_to5(ve);                 // b[s + 1] through tap 5
+                bm[j][1] = centre_to5(vo);
+#pragma unroll
+                for (int h = 0; h < COLS; ++h) {
+                    res[h] = __fsub_rn(__fadd_rn(o1p[j][h], y2[j][h]), bf[h]);
+                    o1p[j][h] = af[h];
+                    y2[j][h] = y1[j][h];
+                    y1[j][h] = y[j][h];
+                }
+            } else {
+#pragma unroll
+                for (int t = 0; t < 9; ++t) {
+                    pe[t] = __fmul_rn(y[j][0], kc[t][0]);
+                    po[t] = __fmul_rn(y[j][1], kc[t][1]);
+                }
+                to_terms(pe, po, ve, vo);
+                af[0] = taps3(am[j][0], ve, 6);           // a[s + 1] complete
+                af[1] = taps3(am[j][1], vo, 6);
+                am[j][0] = taps3(an[j][0], ve, 3);
+                am[j][1] = taps3(an[j][1], vo, 3);
+                an[j][0] = __fadd_rn(__fadd_rn(ve[0], ve[1]), ve[2]);
+                an[j][1] = __fadd_rn(__fadd_rn(vo[0], vo[1]), vo[2]);
+                af[0] = a0 ? af[0] : 0.f;                  // +0 outside
+                af[1] = a1 ? af[1] : 0.f;
+#pragma unroll
+                for (int t = 0; t < 9; ++t) {
+                    pe[t] = __fmul_rn(af[0], kp[t][0]);
+                    po[t] = __fmul_rn(af[1], kp[t][1]);
+                }
+                to_terms(pe, po, ve, vo);
+                bf[0] = taps3(bm[j][0], ve, 6);           // b[s + 2] complete
+                bf[1] = taps3(bm[j][1], vo, 6);
+                bm[j][0] = taps3(bn[j][0], ve, 3);
+                bm[j][1] = taps3(bn[j][1], vo, 3);
+                bn[j][0] = __fadd_rn(__fadd_rn(ve[0], ve[1]), ve[2]);
+                bn[j][1] = __fadd_rn(__fadd_rn(vo[0], vo[1]), vo[2]);
+#pragma unroll
+                for (int h = 0; h < COLS; ++h) {
+                    res[h] = __fadd_rn(u[j][h], bf[h]);
+                    u[j][h] = __fsub_rn(__fmul_rn(3.f, y1[j][h]), __fmul_rn(3.f, af[h]));
+                    y1[j][h] = y[j][h];
+                }
             }
-            to_terms(pe, po, ve, vo);
-            bf[0] = taps3(bm[j][0], ve, 6);           // b[s + 2] complete
-            bf[1] = taps3(bm[j][1], vo, 6);
-            bm[j][0] = taps3(bn[j][0], ve, 3);
-            bm[j][1] = taps3(bn[j][1], vo, 3);
-            bn[j][0] = __fadd_rn(__fadd_rn(ve[0], ve[1]), ve[2]);
-            bn[j][1] = __fadd_rn(__fadd_rn(vo[0], vo[1]), vo[2]);
             if (store && j < ng && emit0) {
                 float* o = orow + j * p.out_gs;
-                const float r0 = __fdiv_rn(__fadd_rn(u[j][0], bf[0]), g2[0]);
-                const float r1 = __fdiv_rn(__fadd_rn(u[j][1], bf[1]), g2[1]);
+                const float r0 = __fdiv_rn(res[0], g2[0]);
+                const float r1 = __fdiv_rn(res[1], g2[1]);
                 if (vec && emit1) {
                     *reinterpret_cast<float2*>(o) = make_float2(r0, r1);
                 } else {
@@ -379,14 +469,13 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
                     if (emit1) o[1] = r1;
                 }
             }
-#pragma unroll
-            for (int h = 0; h < COLS; ++h) {
-                u[j][h] = __fsub_rn(__fmul_rn(3.f, y1[j][h]), __fmul_rn(3.f, af[h]));
-                y1[j][h] = y[j][h];
-            }
         }
 #pragma unroll
         for (int t = 0; t < 9; ++t) {
+            if (NEUMANN && t < 3) {
+                kq[t % 3][0] = kp[t][0];
+                kq[t % 3][1] = kp[t][1];
+            }
             kp[t][0] = kc[t][0];
             kp[t][1] = kc[t][1];
         }
@@ -398,31 +487,31 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
     }
 }
 
-template <int GC>
+template <int GC, class O>
 cudaError_t launch(const Slab& p, const Border& q, int ctas_x, int nseg,
                    int seg, int nch, int border_ctas, int vec, cudaStream_t stream)
 {
     const long long grid = (long long)ctas_x * nseg * nch + border_ctas;
     if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        ipc_slab_kernel<GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ipc_slab_kernel<GC, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)ring_bytes(GC));
     if (err != cudaSuccess) return err;
-    ipc_slab_kernel<GC><<<(unsigned)grid, NT, ring_bytes(GC), stream>>>(
+    ipc_slab_kernel<GC, O><<<(unsigned)grid, NT, ring_bytes(GC), stream>>>(
         p, q, ctas_x, nseg, seg, border_ctas, vec);
     return cudaGetLastError();
 }
 
-template <int GC>
+template <int GC, class O>
 cudaError_t resident(int* ctas)
 {
     int per_sm = 0, dev = 0, sms = 0;
     cudaError_t err = cudaFuncSetAttribute(
-        ipc_slab_kernel<GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ipc_slab_kernel<GC, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)ring_bytes(GC));
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, ipc_slab_kernel<GC>, NT, ring_bytes(GC));
+            &per_sm, ipc_slab_kernel<GC, O>, NT, ring_bytes(GC));
     if (err == cudaSuccess) err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -430,41 +519,58 @@ cudaError_t resident(int* ctas)
     return err;
 }
 
+// f(std::integral_constant<int, chunk>, order tag) for chunk 1..8 and
+// order 0 (SlabOrder) or 1 (NeumannOrder)
+template <class F>
+cudaError_t instantiation(int chunk, int order, F f)
+{
+    auto by_chunk = [&](auto o) -> cudaError_t {
+        switch (chunk) {
+        case 1: return f(std::integral_constant<int, 1>(), o);
+        case 2: return f(std::integral_constant<int, 2>(), o);
+        case 3: return f(std::integral_constant<int, 3>(), o);
+        case 4: return f(std::integral_constant<int, 4>(), o);
+        case 5: return f(std::integral_constant<int, 5>(), o);
+        case 6: return f(std::integral_constant<int, 6>(), o);
+        case 7: return f(std::integral_constant<int, 7>(), o);
+        case 8: return f(std::integral_constant<int, 8>(), o);
+        default: return cudaErrorInvalidValue;
+        }
+    };
+    if (order == 0) return by_chunk(SlabOrder());
+    if (order == 1) return by_chunk(NeumannOrder());
+    return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// CTAs of the kernel compiled for `chunk` groups that the current device
-// holds at once.
-extern "C" int ipc_slab_resident(int chunk, int* ctas)
+// CTAs of the kernel compiled for `chunk` groups and `order` (0: slab,
+// 1: Neumann) that the current device holds at once.
+extern "C" int ipc_slab_resident(int chunk, int order, int* ctas)
 {
-    switch (chunk) {
-    case 1: return (int)resident<1>(ctas);
-    case 2: return (int)resident<2>(ctas);
-    case 3: return (int)resident<3>(ctas);
-    case 4: return (int)resident<4>(ctas);
-    case 5: return (int)resident<5>(ctas);
-    case 6: return (int)resident<6>(ctas);
-    case 7: return (int)resident<7>(ctas);
-    case 8: return (int)resident<8>(ctas);
-    default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)instantiation(chunk, order, [&](auto gc, auto o) {
+        return resident<decltype(gc)::value, decltype(o)>(ctas);
+    });
 }
 
 // One launch: segments of `seg` rows, chunks of `chunk` groups (the plan
-// of ops/ipc_slab.py).  With frame_in / frame_out given (the frame
-// forms), `in` and `out` point at the active region inside those (ngrp,
-// nside, nside) frames and `border_ctas` extra CTAs at the head of the
-// grid copy the nborder-wide border from frame_in to frame_out while the
-// others walk their segments.
+// of ops/ipc_slab.py), sums in `order` (0: slab, 1: Neumann).  With
+// frame_in / frame_out given (the frame forms), `in` and `out` point at
+// the active region inside those (ngrp, nside, nside) frames and
+// `border_ctas` extra CTAs at the head of the grid copy the
+// nborder-wide border from frame_in to frame_out while the others walk
+// their segments; the Neumann order then reads min(nborder, EXT) rows
+// and columns of the border around the active region of every input.
 extern "C" int ipc_slab_launch(
     const float* in, long long in_gs, int in_pitch,
     float* out, long long out_gs, int out_pitch,
     const float* k, long long k_ps, int k_pitch,
     const float* gain, int g_pitch, int ngrp, int na,
     const float* frame_in, float* frame_out, int nside, int nborder,
-    int border_ctas, int seg, int chunk, void* stream)
+    int border_ctas, int seg, int chunk, int order, void* stream)
 {
     if (ngrp < 1 || na < 1 || seg < 1 || chunk < 1 || chunk > MAX_CHUNK ||
-        border_ctas < 0)
+        border_ctas < 0 || nborder < 0)
         return (int)cudaErrorInvalidValue;
     Slab p;
     p.in = in; p.in_gs = in_gs; p.in_pitch = in_pitch;
@@ -472,6 +578,7 @@ extern "C" int ipc_slab_launch(
     p.k = k; p.k_ps = k_ps; p.k_pitch = k_pitch;
     p.gain = gain; p.g_pitch = g_pitch;
     p.ngrp = ngrp; p.na = na;
+    p.ext = order == 1 && frame_in ? (nborder < EXT ? nborder : EXT) : 0;
     Border q;
     q.in = frame_in; q.out = frame_out; q.nside = nside; q.nb = nborder;
     const int strips = (na + STRIP - 1) / STRIP;
@@ -480,21 +587,17 @@ extern "C" int ipc_slab_launch(
     const int nch = (ngrp + chunk - 1) / chunk;
     if (!frame_in || nborder <= 0) border_ctas = 0;
     // 8-byte copies and stores of column pairs: every array 8-byte
-    // aligned at even columns of every row, group and plane
+    // aligned at even columns of every row, group and plane, and the
+    // span read starting at an even column
     auto even = [](const void* ptr, long long a, long long b) {
         return ((unsigned long long)ptr % 8 == 0) && a % 2 == 0 && b % 2 == 0;
     };
     const int vec = even(in, in_gs, in_pitch) && even(out, out_gs, out_pitch)
-        && even(k, k_ps, k_pitch) && (!gain || even(gain, 0, g_pitch));
+        && even(k, k_ps, k_pitch) && (!gain || even(gain, 0, g_pitch))
+        && p.ext % 2 == 0;
     const cudaStream_t s = (cudaStream_t)stream;
-    switch (chunk) {
-    case 1: return (int)launch<1>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
-    case 2: return (int)launch<2>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
-    case 3: return (int)launch<3>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
-    case 4: return (int)launch<4>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
-    case 5: return (int)launch<5>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
-    case 6: return (int)launch<6>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
-    case 7: return (int)launch<7>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
-    default: return (int)launch<8>(p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
-    }
+    return (int)instantiation(chunk, order, [&](auto gc, auto o) {
+        return launch<decltype(gc)::value, decltype(o)>(
+            p, q, ctas_x, nseg, seg, nch, border_ctas, vec, s);
+    });
 }

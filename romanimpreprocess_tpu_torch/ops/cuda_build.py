@@ -26,8 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = ("ipc_frame.cu", "linearity.cu", "blockmed.cu", "contract.cu",
-           "ipc_fwd.cu", "pink.cu", "ipc_slab.cu")
+SOURCES = ("linearity.cu", "blockmed.cu", "contract.cu", "ipc_fwd.cu", "pink.cu",
+           "ipc_slab.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -91,7 +91,6 @@ def build_all():
 def _declare(lib):
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in (
-        ("ipc_rev2_frame_launch", (P, P, P, P, I, I, I, P)),
         ("linearity_cube_launch", (P, P, P, P, P, P, P, P, P, I, I, L, I, P)),
         ("block_nanmedian_launch", (P, P, I, I, L, I, I, I, P)),
         ("contract_reads_launch", (P, P, P, I, I, L, I, P)),
@@ -99,8 +98,8 @@ def _declare(lib):
         ("pink_frames_launch", (P,) * 11 + (I, I, I, P)),
         ("pink_frames_wgmma_launch", (P,) * 10 + (I, I, I, P)),
         ("ipc_slab_launch",
-         (P, L, I, P, L, I, P, L, I, P, I, I, I, P, P, I, I, I, I, I, P)),
-        ("ipc_slab_resident", (I, P)),
+         (P, L, I, P, L, I, P, L, I, P, I, I, I, P, P, I, I, I, I, I, I, P)),
+        ("ipc_slab_resident", (I, I, P)),
     ):
         if hasattr(lib, name):
             fn = getattr(lib, name)

@@ -2,10 +2,8 @@
 on the frame and one forward application on a cube.
 
 Replaces the TPU kernel ``ops/ipc_pallas.py`` ``ipc_rev2_frame_stream``
-of the JAX package, and with it the JAX package's two slab variants
-(``IPC_BACKEND`` 'pallas' and 'pallas-stream'), which compute the same
-inverse.  The kernel (``csrc/ipc_frame.cu``) reads the raw
-(ngrp, nside, nside) cube, the nine border-zeroed kernel planes of
+of the JAX package.  :func:`ipc_rev2_frame` reads the raw (ngrp, nside,
+nside) cube, the nine border-zeroed kernel planes of
 :func:`kernel_planes_frame` and the gain once, and writes
 
     out = (3 y - 3 K y + K K y) / gain,   y = data * gain
@@ -13,8 +11,12 @@ inverse.  The kernel (``csrc/ipc_frame.cu``) reads the raw
 (as the Neumann recursion ``o <- (o + y) - K o`` from ``o = y``) on
 the active region and the input unchanged on the border.  Its plain
 twin is :func:`ipc_rev2_frame_plain` (the CPU path and ``IPC_BACKEND:
-xla``), with which it agrees bit for bit: the kernel repeats the twin's
-rounded steps in the same order.
+xla``), with which it agrees bit for bit.  On the card it is one launch
+of the slab module's row-streaming kernel (``csrc/ipc_slab.cu``,
+:mod:`.ipc_slab`) compiled for the Neumann order: the twin's rounded
+steps in its order, on the frame's active view in place, the sources
+of the border read from the frame, the border copied by the same
+launch.
 
 Bound: bytes, about 1.48 GB at 4096^2 x 6 groups (:func:`bytes_moved`).
 
@@ -32,10 +34,10 @@ import numpy as np
 import torch
 
 from ..utils import hostcache
-from . import cuda_build, ipc
+from . import cuda_build, ipc, ipc_slab
 
-#: launches of the frame-inverse kernel since the last reset (set it to 0
-#: to reset)
+#: launches of the frame inverse since the last reset (set it to 0 to
+#: reset)
 launches = 0
 #: launches of the forward kernel since the last reset
 fwd_launches = 0
@@ -73,7 +75,7 @@ def bytes_moved(ngrp, nside):
 
 
 def ipc_rev2_frame_plain(data, planes, gain, nborder=4):
-    """Plain PyTorch version of the frame kernel (same inputs/outputs):
+    """Plain PyTorch version of :func:`ipc_rev2_frame` (same inputs/outputs):
     :func:`.ipc.ipc_rev` on the whole frame, the planes viewed as the
     (3, 3, nside, nside) kernel, border passed through."""
     nb = nborder
@@ -88,27 +90,25 @@ def ipc_rev2_frame(data, planes, gain, nborder=4):
     """Order-2 IPC inverse on the raw (ngrp, nside, nside) float32 cube,
     border passthrough.  ``planes`` is the (9, nside, nside) output of
     :func:`kernel_planes_frame`; ``gain`` is (nside, nside).  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel.
+    tensor takes the plain version; a CUDA tensor launches the kernel:
+    the slab kernel in the Neumann order on the active views of the
+    frame, its planes and its gain, the border copied by the same
+    launch.
     """
     if data.device.type == "cpu":
         return ipc_rev2_frame_plain(data, planes, gain, nborder)
     global launches
     ngrp, nside, _ = data.shape
-    if nborder < 0 or 2 * nborder > nside:
-        raise ValueError(f"nborder {nborder} does not fit nside {nside}")
     req = cuda_build.require
     req(data, "data", torch.float32, (ngrp, nside, nside))
     req(planes, "planes", torch.float32, (9, nside, nside))
     req(gain, "gain", torch.float32, (nside, nside))
+    if nborder < 0 or 2 * nborder >= nside:
+        raise ValueError(f"nborder {nborder} leaves no active region in nside {nside}")
     out = torch.empty_like(data)
-    lib = cuda_build.library("ipc_frame.cu")
-    with torch.cuda.device(data.device):
-        err = lib.ipc_rev2_frame_launch(
-            data.data_ptr(), planes.data_ptr(), gain.data_ptr(),
-            out.data_ptr(), ngrp, nside, nborder,
-            cuda_build.stream_ptr(data),
-        )
-    cuda_build.check(err, "ipc_rev2_frame_launch")
+    act = slice(nborder, nside - nborder)
+    ipc_slab.launch(data[:, act, act], out[:, act, act], planes[:, act, act],
+                    gain[act, act], data, out, nborder, order=ipc_slab.NEUMANN)
     launches += 1
     return out
 

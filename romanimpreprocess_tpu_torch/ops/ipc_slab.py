@@ -1,5 +1,6 @@
 """Hand-written CUDA kernel for the order-2 IPC inverse on the
-active-region cube, behind the three entry points of the TPU module.
+active-region cube, behind the three slab entry points of the TPU module
+and the frame inverse of :mod:`.ipc_cuda`.
 
 Replaces the slab half of the TPU module ``ops/ipc_pallas.py`` of the
 JAX package: ``ipc_rev2_cube_blocked`` (``IPC_BACKEND: pallas``),
@@ -10,8 +11,10 @@ JAX package: ``ipc_rev2_cube_blocked`` (``IPC_BACKEND: pallas``),
 
 where ``K x`` sums ``shift(x * K_t)`` over :data:`TAPS` in order (the
 first product starts the sum; source-indexed weights; zero fill).  This
-is another order of summation than the frame kernel's Neumann recursion
-(:mod:`.ipc_cuda`), so the two routes differ in the last bits.
+is another order of summation than the frame inverse's Neumann
+recursion (:mod:`.ipc_cuda`), so the two routes differ in the last bits.
+The kernel is compiled for both orders (:data:`SLAB`, :data:`NEUMANN`):
+:func:`.ipc_cuda.ipc_rev2_frame` launches it in the Neumann order.
 
 The TPU's blocked and streaming traversals exist for its VMEM windows;
 here one kernel (``csrc/ipc_slab.cu``) serves every entry point: a warp
@@ -72,6 +75,12 @@ MIN_SEG = 16
 RESIDENT_H100 = 396
 #: CTAs of a frame-form launch that copy the border beside the segments
 BORDER_CTAS = 8
+#: the kernel's orders of summation: this module's entry points, and the
+#: frame inverse of :mod:`.ipc_cuda` (the Neumann recursion)
+SLAB, NEUMANN = 0, 1
+#: border rows and columns around the active region that the Neumann
+#: order reads from the frame (its second product's sources' sources)
+NEUMANN_EXT = 2
 
 
 #: how the kernel cuts a (ngrp, na, na) cube: ``strip`` output columns
@@ -101,17 +110,19 @@ def plan(na, ngrp, resident=RESIDENT_H100):
     return Plan(STRIP, seg, nseg, chunk, nchunks, ctas_x, ctas_x * nseg * nchunks)
 
 
-def reread_share(na, ngrp, resident=RESIDENT_H100):
+def reread_share(na, ngrp, resident=RESIDENT_H100, ext=0):
     """Elements the plan's warps load beyond one read of each input, as
     a share of :func:`bytes_moved` (with a gain): the halo columns of
     every strip (4 of 64) and the warm-up rows of every segment, on
     the cube, and on the planes and gain once per chunk.  Neighbouring
     warps of a CTA load the same halo columns at about the same time, so
-    the caches serve most of that part."""
+    the caches serve most of that part.  ``ext``: rows and columns read
+    around the active region (the Neumann order on a frame reads
+    :data:`NEUMANN_EXT`)."""
     p = plan(na, ngrp, resident)
-    cols = sum(min(na, STRIP * i + STRIP + 2) - max(0, STRIP * i - 2)
+    cols = sum(min(na + ext, STRIP * i + STRIP + 2) - max(-ext, STRIP * i - 2)
                for i in range(-(-na // STRIP)))
-    rows = sum(min(na, min(r + p.seg, na) + 2) - max(0, r - 2)
+    rows = sum(min(na + ext, min(r + p.seg, na) + 2) - max(-ext, r - 2)
                for r in range(0, na, p.seg))
     loaded = (ngrp + 10 * p.nchunks) * cols * rows
     return (loaded - (ngrp + 10) * na * na) / ((2 * ngrp + 10) * na * na)
@@ -250,27 +261,31 @@ def _require_inputs(cube, kernel, gain, na, th):
 _RESIDENT = {}
 
 
-def _resident(lib, device, chunk):
-    """CTAs of the kernel compiled for ``chunk`` groups that ``device``
-    holds at once (asked once per device and chunk)."""
-    key = (device.index, chunk)
+def _resident(lib, device, chunk, order=SLAB):
+    """CTAs of the kernel compiled for ``chunk`` groups and ``order``
+    that ``device`` holds at once (asked once per device, chunk and
+    order)."""
+    key = (device.index, chunk, order)
     if key not in _RESIDENT:
         n = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = lib.ipc_slab_resident(chunk, ctypes.byref(n))
+            err = lib.ipc_slab_resident(chunk, order, ctypes.byref(n))
         cuda_build.check(err, "ipc_slab_resident")
         _RESIDENT[key] = n.value
     return _RESIDENT[key]
 
 
-def _launch(src, dst, planes, gain, frame_in=None, frame_out=None, nborder=0):
+def launch(src, dst, planes, gain, frame_in=None, frame_out=None, nborder=0,
+           order=SLAB):
     """One launch of the kernel on the (ngrp, na, na) views ``src`` ->
-    ``dst``; with ``frame_in`` / ``frame_out`` the extra CTAs copy their
-    ``nborder``-wide border."""
+    ``dst``, summing in ``order``; with ``frame_in`` / ``frame_out`` the
+    extra CTAs copy their ``nborder``-wide border (and the Neumann order
+    reads up to :data:`NEUMANN_EXT` rows and columns of it around every
+    view)."""
     ngrp, na = src.shape[0], src.shape[-1]
     lib = cuda_build.library("ipc_slab.cu")
     border = BORDER_CTAS if frame_in is not None and nborder > 0 else 0
-    resident = _resident(lib, src.device, plan(na, ngrp).chunk)
+    resident = _resident(lib, src.device, plan(na, ngrp).chunk, order)
     p = plan(na, ngrp, max(1, resident - border))
     with torch.cuda.device(src.device):
         err = lib.ipc_slab_launch(
@@ -278,7 +293,7 @@ def _launch(src, dst, planes, gain, frame_in=None, frame_out=None, nborder=0):
             None if frame_in is None else frame_in.data_ptr(),
             None if frame_out is None else frame_out.data_ptr(),
             0 if frame_in is None else frame_in.shape[-1], nborder,
-            border, p.seg, p.chunk, cuda_build.stream_ptr(src),
+            border, p.seg, p.chunk, order, cuda_build.stream_ptr(src),
         )
     cuda_build.check(err, "ipc_slab_launch")
 
@@ -288,7 +303,7 @@ def _cube(cube, kernel, gain, th):
     na = cube.shape[-1]
     _, planes = _require_inputs(cube, kernel, gain, na, th)
     out = torch.empty_like(cube)
-    _launch(cube, out, planes, gain)
+    launch(cube, out, planes, gain)
     return out
 
 
@@ -357,7 +372,7 @@ def _correct_frame(data, kernel, gain, nborder, th):
     _check_gain(gain, na)
     out = torch.empty_like(data)
     act = (slice(None), slice(nb, ny - nb), slice(nb, ny - nb))
-    _launch(data[act], out[act], planes, gain, data, out, nb)
+    launch(data[act], out[act], planes, gain, data, out, nb)
     return out
 
 

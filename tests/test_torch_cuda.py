@@ -12,8 +12,9 @@ same order (no FMA contraction), so linearity (cube and DQ), the block
 nanmedian (every size branch: clusters of 1 to 8 CTAs and the streaming
 kernel; also against ``np.nanmedian``), the read contraction, the forward
 IPC, the slab IPC inverse behind its four entry points (against the twin
-and against each other) and the L1 -> L2 product are held bit for bit; the frame IPC inverse is held to 1e-5 of the
-largest value, the JAX package's own gate for its Pallas kernel.  The
+and against each other), the frame IPC inverse (the same kernel in the
+Neumann order; signed zeros and NaN positions too) and the L1 -> L2
+product are held bit for bit.  The
 pink transform (the wgmma path and, below length 2^16, the mma.sync
 path) shares its twin's cast points and sums in another order:
 difference std < 1e-2 and max < 5e-2 of the frame std (the JAX
@@ -38,7 +39,7 @@ from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc, ipc_cuda,
                                              linearity_cuda, median_cuda, pink,
                                              pink_cuda, sky)
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
-from romanimpreprocess_tpu_torch.utils import parity
+from romanimpreprocess_tpu_torch.utils import parity, time_frame
 
 torch.set_num_threads(1)
 
@@ -56,25 +57,36 @@ def _same(a, b):
     return bool(((a == b) | (np.isnan(a) & np.isnan(b))).all())
 
 
+# (ngrp, nside, nborder): groups 1, 6, 9 and 17 (one and two register
+# chunks) at nside 20 (narrower than one warp strip), 67, 131 and 1000
+# with nborder 4; nborder 2, 0, 1 and 3 once each
+FRAME_CASES = ([(g, n, 4) for g in (1, 6, 9, 17) for n in (20, 67, 131, 1000)]
+               + [(6, 131, 2), (3, 67, 0), (2, 67, 1), (9, 130, 3)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ngrp,nside", [(3, 128), (2, 120)])
-def test_ipc_frame_cuda_matches_plain(cuda_device, ngrp, nside):
-    rng = np.random.RandomState(nside)
-    na = nside - 8
-    K = rng.uniform(0, 0.02, (3, 3, na, na)).astype(np.float32)
-    K[1, 1] = 1 - K.sum(axis=(0, 1)) + K[1, 1]
-    planes = torch.from_numpy(ipc_cuda.kernel_planes_frame(K, nside, 4)).to(cuda_device)
-    d = torch.from_numpy(rng.uniform(0, 1000, (ngrp, nside, nside))
-                         .astype(np.float32)).to(cuda_device)
-    g = torch.from_numpy(rng.uniform(1.4, 1.6, (nside, nside))
-                         .astype(np.float32)).to(cuda_device)
-    n0 = ipc_cuda.launches
-    got = ipc_cuda.ipc_rev2_frame(d, planes, g)
-    ref = ipc_cuda.ipc_rev2_frame_plain(d, planes, g)
-    torch.cuda.synchronize()
-    assert ipc_cuda.launches == n0 + 1
-    assert torch.equal(got[:, :4], d[:, :4]) and torch.equal(got[:, :, -4:], d[:, :, -4:])
-    assert ((got - ref).abs().max() / ref.abs().max()).item() < 1e-5
+@pytest.mark.parametrize("ngrp,nside,nb", FRAME_CASES)
+def test_ipc_frame_cuda_matches_plain(cuda_device, ngrp, nside, nb):
+    """The frame inverse (the slab kernel in the Neumann order) against
+    its twin, bit for bit (signed zeros alike, NaN at the same places):
+    on negative data, and again with a NaN and infinities in the two
+    border rows and columns next to the active region (inside it for
+    nborder 0), which reach the output through their zero weights in
+    both (``time_frame.inputs``).  One launch each; border passed
+    through."""
+    gen = torch.Generator(device=cuda_device).manual_seed(nside + ngrp + nb)
+    border = torch.ones((nside, nside), dtype=torch.bool, device=cuda_device)
+    border[nb : nside - nb, nb : nside - nb] = False
+    for nonfinite in (False, True):
+        x, planes, g = time_frame.inputs(ngrp, nside, nb, gen, nonfinite)
+        n0 = ipc_cuda.launches
+        got = ipc_cuda.ipc_rev2_frame(x, planes, g, nb)
+        ref = ipc_cuda.ipc_rev2_frame_plain(x, planes, g, nb)
+        torch.cuda.synchronize()
+        assert ipc_cuda.launches == n0 + 1
+        assert time_frame.same_bits(got[:, border], x[:, border])
+        assert time_frame.same_bits(got, ref)
+        assert bool(torch.isfinite(got).all()) != nonfinite
 
 
 @pytest.mark.cuda

@@ -28,7 +28,7 @@ Phases, each printing one JSON line:
    path on ``cpu`` at 128^2 (``utils/parity.py`` ``plain_devices``):
    ``calibrateimage`` with the classic fit and the core with the
    likelihood fit on the slab route's twin at the slice's gates; the
-   sim's resultants over 8 seeds at the moment gates, and sim -> L1 ->
+   example noise layers at the spread gates; the sim's resultants over 8 seeds at the moment gates, and sim -> L1 ->
    L2 at the envelope gates, on each device.
 4. main path, L1 -> L2: a synthetic 4096^2 CALDIR and 6-group L1 through
    ``calibrateimage`` on ``cuda`` with every backend ``auto``
@@ -37,7 +37,20 @@ Phases, each printing one JSON line:
    held against the plain path on the card (every backend ``xla``);
    the warm core timed with CUDA events, kernels and plain path in
    turns, and profiled (the ``ipc`` stage's device time printed).
-5. main path, L1 -> L2 with the likelihood fit: the same CALDIR and L1
+5. noise engine: the classic phase's CALDIR and its L1 with sources
+   added (10% of the pixels 100 DN/s brighter) through
+   ``noise.generate_all_noise`` with the example layers
+   ``['Rz4PbrS2C1', 'Rz4OS2C2']`` (seed 15000, ``device-strict``, every
+   backend ``auto``, ``CONTRACT_BACKEND: pallas``), launch counts and
+   Pearson type-4 rejection rounds read around that call; the cube
+   checked (shape, finite, the same seed twice gives the same cube),
+   held to the plain path (``xla`` / ``dot``) at the spread gates
+   (``utils/parity.py`` ``compare_noise``), its 'O' layer to the
+   signal; the warm runner (``noise_core.make_staged_noise_runner``)
+   timed with CUDA events, kernels and plain path in turns, and
+   profiled; the likelihood fit under ``IPC_BACKEND: pallas-stream``
+   once, so that kernel 5 serves the re-entries.
+6. main path, L1 -> L2 with the likelihood fit: the same CALDIR and L1
    through ``calibrateimage`` with ``romancal_ramp_fit: True``, once
    with ``IPC_BACKEND: pallas`` (the slab kernel through the blocked
    entry's fused full-frame form) and once with ``pallas-stream`` (the
@@ -48,7 +61,7 @@ Phases, each printing one JSON line:
    (``pallas-frame``), whose core outputs are held bit for bit against
    its own plain route (the frame twin, ``IPC``/``LIN``/``SKY``
    ``xla``); the warm core timed and profiled.
-6. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
+7. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
    through ``sim_to_l1.run_config`` on ``cuda`` (6 groups, 14 reads;
    ``IPC_BACKEND``/``PINK_BACKEND`` ``auto``, ``CONTRACT_BACKEND:
    pallas``), launch counts read around that run; the L1 file checked
@@ -141,6 +154,10 @@ def cuda_ms(fn, runs=10, warmup=2):
 #: ipc_slab_kernel<G, SlabOrder>
 L2_KERNEL_NAMES = ("linearity_kernel", "NeumannOrder", "block_nanmedian", "SlabOrder")
 SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_", "contract_kernel")
+NOISE_KERNEL_NAMES = L2_KERNEL_NAMES + ("pink_", "contract_kernel")
+#: the port's ``torch.profiler`` ranges (``l1_to_l2.StageRanges`` and the
+#: noise runner's), whose copies on the GPU timeline are not kernels
+RANGE_PREFIXES = ("l1_to_l2.", "sim_to_l1.", "noise.")
 
 
 def profile(fn, top=10, prefix="l1_to_l2", ours=L2_KERNEL_NAMES):
@@ -164,7 +181,7 @@ def profile(fn, top=10, prefix="l1_to_l2", ours=L2_KERNEL_NAMES):
 
     # device events, less the stage ranges' own copies on the GPU timeline
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(prefix + ".")]
+            and not e.name.startswith(RANGE_PREFIXES)]
     if not kern:
         return {"wall_ms": wall_ms, "device_time": "not measured (no CUDA events)"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
@@ -650,6 +667,22 @@ KERNELS = {
 SLAB_KERNELS = ("ipc_rev2_cube_blocked", "ipc_rev2_cube_stream", "correct_cube_fused")
 
 
+def kernel_counters():
+    """(module, counter attribute) of every kernel in :data:`KERNELS`."""
+    from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc_cuda, ipc_slab,
+                                                 linearity_cuda, median_cuda, pink_cuda)
+
+    return {"linearity": (linearity_cuda, "launches"),
+            "ipc_rev2_frame": (ipc_cuda, "launches"),
+            "block_nanmedian": (median_cuda, "launches"),
+            "ipc_fwd_cube": (ipc_cuda, "fwd_launches"),
+            "pink_frames": (pink_cuda, "launches"),
+            "contract_reads": (contract_cuda, "launches"),
+            "ipc_rev2_cube_blocked": (ipc_slab, "blocked_launches"),
+            "ipc_rev2_cube_stream": (ipc_slab, "stream_launches"),
+            "correct_cube_fused": (ipc_slab, "fused_launches")}
+
+
 def phase_kernels(card):
     import torch
 
@@ -767,49 +800,34 @@ def phase_plain_devices(card):
 # Phase 4: the main path
 # --------------------------------------------------------------------------
 
+#: the L2 tree's float maps held by :func:`_compare_l2`
+L2_MAPS = ("data", "data_withsky", "err", "var_poisson", "var_rnoise")
+
+
+def _l2_outputs(tree):
+    """The fields of an L2 tree that :func:`_compare_l2` holds, under the
+    names ``parity.compare_outputs`` reads (``pdq``: the active ``dq``)."""
+    im, pi = tree["roman"], tree["processinfo"]
+    out = {k: np.asarray(im[k]) for k in L2_MAPS}
+    out.update(pdq=np.asarray(im["dq"]), skycoefs=np.asarray(pi["skycoefs"]),
+               medsky=np.asarray(pi["medsky"]), endslice=np.asarray(pi["endslice"]))
+    return out
+
+
 def _compare_l2(ref, got, what, loose_bits=4, gate_sky=True, atol_frac=1e-5,
                 outside_frac=0.0):
-    """The slice's parity rules: DQ bit-exact except ``loose_bits``
-    (JUMP_DET; with the likelihood fit also DO_NOT_USE, which a jump
-    too early to refit sets) on at most 1e-4 of pixels;
-    science/variance maps within rtol 1e-5 and atol ``atol_frac``
-    max|ref| (1e-5 between two paths that round alike) on all but
-    ``outside_frac`` of the pixels; sky coefficients within rtol 1e-4 (reported only, with ``gate_sky``
-    off); endslice exact."""
-    rr, gr = ref["roman"], got["roman"]
-    dq_r, dq_g = np.asarray(rr["dq"]), np.asarray(gr["dq"])
-    diff = dq_r ^ dq_g
-    require(not (diff & ~np.uint32(loose_bits)).any(),
-            f"{what}: DQ differs beyond bits {loose_bits}")
-    jump_frac = float((diff != 0).mean())
-    require(jump_frac <= 1e-4, f"{what}: JUMP_DET differs on {jump_frac}")
-    res = {"jump_det_diff_frac": jump_frac}
-    for k in ("data", "data_withsky", "err", "var_poisson", "var_rnoise"):
-        r, g = np.asarray(rr[k]), np.asarray(gr[k])
-        scale = float(np.abs(r).max())
-        ok = np.abs(g - r) <= 1e-5 * np.abs(r) + atol_frac * scale
-        # pixels whose JUMP_DET flag differs may fit other slopes
-        ok |= (diff != 0)
-        res[k + "_max_abs_err"] = float(np.abs(g - r).max())
-        res[k + "_outside_frac"] = float(1.0 - ok.mean())
-        require(res[k + "_outside_frac"] <= outside_frac,
-                f"{what}: {k} differs on {res[k + '_outside_frac']} of pixels "
-                f"(largest {res[k + '_max_abs_err']} of {scale})")
-    rp, gp = ref["processinfo"], got["processinfo"]
-    sc_r, sc_g = np.asarray(rp["skycoefs"]), np.asarray(gp["skycoefs"])
-    res["skycoefs_within_gate"] = bool(
-        np.allclose(sc_g, sc_r, rtol=1e-4, atol=1e-4 * np.abs(sc_r).max()))
-    require(res["skycoefs_within_gate"] or not gate_sky,
-            f"{what}: skycoefs {sc_g} vs {sc_r}")
-    require(np.array_equal(np.asarray(rp["endslice"]), np.asarray(gp["endslice"])),
-            f"{what}: endslice differs")
-    res["skycoefs_max_abs_err"] = float(np.abs(sc_g - sc_r).max())
-    res["skycoefs_max_abs"] = float(np.abs(sc_r).max())
-    res["bit_exact"] = bool(
-        np.array_equal(dq_r, dq_g) and np.array_equal(sc_r, sc_g)
-        and all(np.array_equal(np.asarray(rr[k]), np.asarray(gr[k]))
-                for k in ("data", "data_withsky", "err", "var_poisson", "var_rnoise")))
-    return res
+    """Two L2 trees at the slice's parity gates (``parity.compare_outputs``):
+    DQ bit-exact except ``loose_bits`` (JUMP_DET; with the likelihood fit
+    also DO_NOT_USE, which a jump too early to refit sets) on at most 1e-4
+    of pixels; the maps within rtol 1e-5 and atol ``atol_frac`` max|ref|
+    (1e-5 between two paths that round alike) on all but ``outside_frac``
+    of the pixels; ``skycoefs`` and ``medsky`` within rtol 1e-4 (reported
+    only, with ``gate_sky`` off); endslice exact."""
+    from romanimpreprocess_tpu_torch.utils import parity
+
+    return parity.compare_outputs(
+        _l2_outputs(ref), _l2_outputs(got), what, maps=L2_MAPS, loose_bits=loose_bits,
+        atol_frac=atol_frac, outside_frac=outside_frac, gate_sky=gate_sky)
 
 
 def make_caldir(d, nside):
@@ -821,19 +839,27 @@ def make_caldir(d, nside):
                                 channelwidth=max(nside // 32, 4))
 
 
-def make_inputs(d, nside, rate_dn_s=10.0):
-    """Synthetic L1 (the port's synth) in directory ``d`` for the
-    CALDIR of :func:`make_caldir`; returns (L1 path, injected rate map)."""
+def make_inputs(d, nside, rate_dn_s=10.0, sources_dn_s=0.0, name="L1"):
+    """Synthetic L1 (the port's synth) ``<name>.asdf`` in directory ``d``
+    for the CALDIR of :func:`make_caldir`; returns (L1 path, injected
+    rate map).  ``sources_dn_s``: that much more rate on 10% of the
+    active pixels (seed 8), so that the brightest 5% are sources."""
     from romanimpreprocess_tpu_torch import synth
 
     rp = synth.READ_PATTERN_DEFAULT
     cal = synth.synth_cal_arrays(nside, rp, seed=5)
     data = synth.synth_l1_cube(cal, rp, seed=7, rate_dn_s=rate_dn_s, nborder=NB)
     rate = synth.injected_rate(nside, rate_dn_s, nborder=NB, seed=7)
+    if sources_dn_s:
+        src = (np.random.RandomState(8).uniform(size=rate.shape) < 0.1) & (rate > 0)
+        rate = rate + np.float32(sources_dn_s) * src
+        for j, t in enumerate(cal["t"]):
+            data[j][src] += np.uint16(round(sources_dn_s * t))
     del cal
     amp33 = synth.synth_amp33(nside, len(rp), max(nside // 32, 4))
-    synth.write_l1_file(d + "/L1.asdf", data, rp, amp33=amp33)
-    return d + "/L1.asdf", rate
+    path = f"{d}/{name}.asdf"
+    synth.write_l1_file(path, data, rp, amp33=amp33)
+    return path, rate
 
 
 def phase_main(card, device, d, caldir, nside=NSIDE):
@@ -921,7 +947,163 @@ def phase_main(card, device, d, caldir, nside=NSIDE):
 
 
 # --------------------------------------------------------------------------
-# Phase 5: L1 -> L2 with the likelihood fit and the slab IPC kernel
+# Phase 5: the noise engine
+# --------------------------------------------------------------------------
+
+NOISE_SEED = 15000
+#: the kernels the noise path reaches under every backend ``auto`` and
+#: ``CONTRACT_BACKEND: pallas``
+NOISE_KERNELS = ("linearity", "ipc_rev2_frame", "block_nanmedian", "pink_frames",
+                 "contract_reads")
+
+
+def phase_noise(card, device, d, caldir, nside=NSIDE):
+    """The noise engine at full size: ``generate_all_noise`` with the
+    example layers, ``device-strict``, every backend ``auto`` and
+    ``CONTRACT_BACKEND: pallas``, kernel launches and Pearson type-4
+    rejection rounds read around that call; the cube checked (shape,
+    finite, the same seed twice gives the same cube), held to the plain
+    path's (every backend ``xla`` / ``dot``) at the spread gates, and
+    its 'O' layer to the signal; the warm runner timed and profiled; the
+    likelihood fit under ``IPC_BACKEND: pallas-stream`` once."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.galpoisson import pearson_torch
+    from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
+    from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, noise, noise_core
+    from romanimpreprocess_tpu_torch.utils import parity
+
+    counters = kernel_counters()
+
+    def reset():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    # phase_main's sky with sources: on a 5-15 DN/s sky alone the 'O'
+    # layer's std ratio, bright 5% to faint 50%, is sqrt(14.75 / 7.5) =
+    # 1.4, under the gate's 1.5
+    t0 = time.perf_counter()
+    l1path, _ = make_inputs(d, nside, sources_dn_s=100.0, name="L1_noise")
+    t_synth = time.perf_counter() - t0
+    layers = list(parity.NOISE_LAYERS)
+    cfg = {"IN": l1path, "OUT": d + "/L2_noise_base.asdf", "CALDIR": caldir,
+           "SKYORDER": 2, "SLICEOUT": True, "IPC_BACKEND": "auto", "LIN_BACKEND": "auto",
+           "SKY_BACKEND": "auto", "PINK_BACKEND": "auto", "CONTRACT_BACKEND": "pallas",
+           "NOISE": {"LAYER": layers, "SEED": NOISE_SEED, "BACKEND": "device-strict",
+                     "OUT": d + "/noise.asdf"}}
+    l1_to_l2.calibrateimage(cfg, device=device)
+
+    # ---- the noise path, counted ----
+    reset()
+    pearson_torch.rounds = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    noise.generate_all_noise(cfg, device=device)
+    torch.cuda.synchronize()
+    t_noise = time.perf_counter() - t0
+    launches, rounds = read(), pearson_torch.rounds
+    for k in NOISE_KERNELS:
+        require(launches[k] >= 1, f"noise: kernel {k} was not launched: {launches}")
+
+    na = nside - 2 * NB
+    cube = np.asarray(asdf_lite.open(cfg["NOISE"]["OUT"])["noise"])
+    require(cube.shape == (len(layers), na, na) and cube.dtype == np.float32,
+            f"noise cube {cube.shape} {cube.dtype}")
+    require(bool(np.isfinite(cube).all()), "noise cube not finite")
+    require(np.array_equal(noise.make_noise_cube(cfg, device=device), cube),
+            "noise: the same seed gave another cube")
+
+    # ---- the plain path ----
+    cfg_p = dict(cfg, IPC_BACKEND="xla", LIN_BACKEND="xla", SKY_BACKEND="xla",
+                 PINK_BACKEND="xla", CONTRACT_BACKEND="dot")
+    n0 = read()
+    t0 = time.perf_counter()
+    plain = noise.make_noise_cube(cfg_p, device=device)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    require(read() == n0, "the plain noise path launched a kernel")
+    l2 = asdf_lite.open(cfg["OUT"])["roman"]
+    good = np.asarray(l2["dq"]) == 0
+    sig = np.asarray(l2["data_withsky"])
+    spreads = parity.compare_noise(plain, cube, good, "noise, kernels vs plain")
+    o_ratio = {"kernels": parity.o_tracks_signal(cube[1], sig, good, "noise, kernels"),
+               "plain": parity.o_tracks_signal(plain[1], sig, good, "noise, plain")}
+    del plain, l2, sig
+    res = {"phase": "noise", "ok": True, "card": card, "nside": nside, "ngrp": NGRP,
+           "layers": layers, "seed": NOISE_SEED, "device": str(device),
+           "launches": launches, "type4_rejection_rounds": rounds,
+           "synth_s": t_synth, "generate_all_noise_s": t_noise,
+           "make_noise_cube_plain_s": t_plain, "good_frac": float(good.mean()),
+           "deterministic": True, "kernels_vs_plain": spreads,
+           "o_std_bright_over_faint": o_ratio}
+
+    # ---- the warm runner on staged tensors, kernels and plain path in turns ----
+    pack = calfiles.load_caldir_cached(caldir)
+    l1 = asdf_lite.open(l1path)["roman"]
+    fns = {}
+    for name, c in (("kernels", cfg), ("plain", cfg_p)):
+        prep = l1_to_l2.prepare_inputs(l1, c, pack, device=device)
+        run = noise_core.make_staged_noise_runner(prep, pack, layers, c)
+        fns[name] = lambda run=run, arr=prep["arr"]: run(NOISE_SEED, arr)
+    times = {name: [] for name in fns}
+    for _ in range(2):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn, runs=5, warmup=1))
+    res["runner_ms"] = times
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res["resident_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+    fns["kernels"]()
+    torch.cuda.synchronize()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["profile_kernels"] = profile(fns["kernels"], prefix="noise", ours=NOISE_KERNEL_NAMES)
+    res["profile_plain"] = profile(fns["plain"], prefix="noise", ours=NOISE_KERNEL_NAMES)
+    del fns
+    torch.cuda.empty_cache()
+
+    # ---- the likelihood fit under IPC_BACKEND pallas-stream, once ----
+    cfg_l = dict(cfg, OUT=d + "/L2_noise_likely.asdf", romancal_ramp_fit=True,
+                 IPC_BACKEND="pallas-stream")
+    cfg_l["NOISE"] = dict(cfg["NOISE"], OUT=d + "/noise_likely.asdf")
+    l1_to_l2.calibrateimage(cfg_l, device=device)
+    reset()
+    noise.generate_all_noise(cfg_l, device=device)
+    torch.cuda.synchronize()
+    res["launches_likely_stream"] = read()
+    require(res["launches_likely_stream"]["ipc_rev2_cube_stream"] >= 1
+            and res["launches_likely_stream"]["ipc_rev2_frame"] == 0,
+            f"likelihood noise: launches {res['launches_likely_stream']}")
+    cube_l = np.asarray(asdf_lite.open(cfg_l["NOISE"]["OUT"])["noise"])
+    require(cube_l.shape == cube.shape and bool(np.isfinite(cube_l).all()),
+            "likelihood noise cube")
+    res["likely_layers"] = []
+    for j in range(len(layers)):
+        x = cube_l[j][good]
+        lay = {"spread": float(np.percentile(x, 95) - np.percentile(x, 5)),
+               "median": float(np.median(x))}
+        # tests/test_likely_workflow.py's gates
+        require(0.05 < lay["spread"] < 50.0 and abs(lay["median"]) < 0.3,
+                f"likelihood noise layer {j}: {lay}")
+        res["likely_layers"].append(lay)
+
+    tk = statistics.median(times["kernels"])
+    print(f"noise: warm runner {tk:.1f} ms with the kernels, "
+          f"{statistics.median(times['plain']):.1f} ms plain; generate_all_noise "
+          f"{t_noise:.1f} s; peak memory {res['peak_mem_gb']:.2f} GB", flush=True)
+    print(f"noise: Pearson type-4 rejection rounds in the 'O' layer: {rounds}", flush=True)
+    print("noise: kernel launches of generate_all_noise: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; under the likelihood fit (pallas-stream): ipc_rev2_cube_stream "
+          f"{res['launches_likely_stream']['ipc_rev2_cube_stream']}", flush=True)
+    emit(res)
+    return launches, res["launches_likely_stream"]
+
+
+# --------------------------------------------------------------------------
+# Phase 6: L1 -> L2 with the likelihood fit and the slab IPC kernel
 # --------------------------------------------------------------------------
 
 L2_FIELDS = ("data", "data_withsky", "dq", "err", "var_poisson", "var_rnoise",
@@ -941,16 +1123,10 @@ def phase_likely(card, device, d, caldir, l1path, rate, nside=NSIDE):
     import torch
 
     from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
-    from romanimpreprocess_tpu_torch.ops import (ipc_cuda, ipc_slab, linearity_cuda,
-                                                 median_cuda)
     from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
 
-    counters = {"linearity": (linearity_cuda, "launches"),
-                "ipc_rev2_frame": (ipc_cuda, "launches"),
-                "block_nanmedian": (median_cuda, "launches"),
-                "ipc_rev2_cube_blocked": (ipc_slab, "blocked_launches"),
-                "ipc_rev2_cube_stream": (ipc_slab, "stream_launches"),
-                "correct_cube_fused": (ipc_slab, "fused_launches")}
+    counters = {k: v for k, v in kernel_counters().items()
+                if k in ("linearity", "ipc_rev2_frame", "block_nanmedian") + SLAB_KERNELS}
     base = {"IN": l1path, "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True,
             "romancal_ramp_fit": True, "LIN_BACKEND": "auto", "SKY_BACKEND": "auto"}
     cfgs = {"pallas": dict(base, OUT=d + "/L2_likely_slab.asdf", IPC_BACKEND="pallas"),
@@ -1106,7 +1282,7 @@ def phase_likely(card, device, d, caldir, l1path, rate, nside=NSIDE):
 
 
 # --------------------------------------------------------------------------
-# Phase 6: sim -> L1
+# Phase 7: sim -> L1
 # --------------------------------------------------------------------------
 
 JUMP_DET = 4
@@ -1119,14 +1295,11 @@ def phase_sim(card, device, d, caldir, nside=NSIDE):
     from romanimpreprocess_tpu_torch import pars, synth
     from romanimpreprocess_tpu_torch.config import pattern_to_reads
     from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, fits_lite
-    from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc_cuda, pink_cuda,
-                                                 rand, wcsutils)
+    from romanimpreprocess_tpu_torch.ops import rand, wcsutils
     from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
 
-    # (module, counter attribute) of the sim's three kernels
-    counters = {"ipc_fwd_cube": (ipc_cuda, "fwd_launches"),
-                "pink_frames": (pink_cuda, "launches"),
-                "contract_reads": (contract_cuda, "launches")}
+    counters = {k: v for k, v in kernel_counters().items()
+                if k in ("ipc_fwd_cube", "pink_frames", "contract_reads")}
     rp = synth.READ_PATTERN_DEFAULT
     na = nside - 2 * NB
     cw = max(nside // 32, 4)
@@ -1307,6 +1480,9 @@ def main():
         launches, backends, l1path, rate = phase_main(
             card, torch.device("cuda"), d, caldir)
         torch.cuda.empty_cache()
+        noise_launches, noise_launches_likely = phase_noise(
+            card, torch.device("cuda"), d, caldir)
+        torch.cuda.empty_cache()
         launches.update(phase_likely(card, torch.device("cuda"), d, caldir,
                                      l1path, rate))
         del rate
@@ -1328,7 +1504,11 @@ def main():
             name=name, **meta, launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"],
+            # launches in the noise phase's generate_all_noise call, and
+            # in the one under the likelihood fit and pallas-stream
+            noise_launches=noise_launches[name],
+            noise_launches_likely_stream=noise_launches_likely[name]))
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

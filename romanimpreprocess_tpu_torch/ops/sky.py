@@ -185,3 +185,29 @@ def sky_model_from_coefs(coefs, ny, nx, order):
     for k, (i, j) in enumerate(terms):
         model += float(coefs[k]) * np.outer(LPY[j], LPX[i])
     return model
+
+
+def bisect_quantiles(x, qs, iters=27):
+    """Quantiles by counting bisection (reference
+    ``ops/sky.py:210-235`` of the JAX package), float32.
+
+    Each of ``iters`` rounds counts the elements at or below the
+    midpoint of every quantile's bracket, in one pass for all of
+    ``qs``, and keeps the half that holds the target rank ``q * n``.
+    The result lies within (max - min) * 2^-iters of the bracket's
+    limit: below the float32 resolution of the data range, which is
+    what the noise engine's z-clip needs.  Returns a (len(qs),) tensor.
+    """
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    targets = torch.tensor([float(q) * n for q in qs], dtype=torch.float32,
+                           device=x.device)
+    lo = flat.min().expand(len(qs))
+    hi = flat.max().expand(len(qs))
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        cnt = (flat[None, :] <= mid[:, None]).sum(dim=1).to(torch.float32)
+        too_low = cnt < targets
+        lo = torch.where(too_low, mid, lo)
+        hi = torch.where(too_low, hi, mid)
+    return 0.5 * (lo + hi)

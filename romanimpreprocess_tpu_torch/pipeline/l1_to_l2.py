@@ -37,8 +37,8 @@ import numpy as np
 import torch
 
 from .. import pars
-from ..config import (load_config, resolve_backend, resolve_device,
-                      resolve_ipc_backend)
+from ..config import (load_config, resolve_backend, resolve_contract_backend,
+                      resolve_device, resolve_ipc_backend)
 from ..dqflags import group as gdq
 from ..dqflags import i32, pixel
 from ..io import asdf_lite, calfiles, fits_lite
@@ -701,6 +701,11 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         ipc=resolve_ipc_backend(config, device),
         lin=resolve_backend(config, "LIN_BACKEND", device),
         med=resolve_backend(config, "SKY_BACKEND", device),
+        # the noise engine's fills and 'P...r' resample (the core itself
+        # draws nothing): 'dot' (torch.einsum) or 'cuda' (the read
+        # contraction kernel); 'cuda' or 'xla' for the 1/f transform
+        contract=resolve_contract_backend(config, device),
+        pink=resolve_backend(config, "PINK_BACKEND", device),
         has_dark_dq=pack.dark_dq is not None,
         skyorder=int(config.get("SKYORDER", -1)),
     )

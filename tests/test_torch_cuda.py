@@ -38,7 +38,7 @@ from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc, ipc_cuda,
                                              ipc_slab, linearity,
                                              linearity_cuda, median_cuda, pink,
                                              pink_cuda, sky)
-from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
+from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, noise, sim_to_l1
 from romanimpreprocess_tpu_torch.utils import parity, time_frame
 
 torch.set_num_threads(1)
@@ -355,12 +355,14 @@ def test_plain_path_on_cuda_matches_cpu(cuda_device, tmp_path):
     on the card other library kernels run (batched matrix products,
     ``torch.linalg.solve``, reductions).  The classic fit through
     ``calibrateimage`` and the likelihood fit through the core with the
-    slab route's twin at the slice's gates; the sim at its moment gates
+    slab route's twin at the slice's gates; the example noise layers at
+    the spread gates (the two RNG streams differ); the sim at its moment gates
     (8 seeds) and its envelope gates through sim -> L1 -> L2 on each
     device (the two RNG streams differ)."""
     rep = parity.plain_devices(str(tmp_path), "cpu", cuda_device)
-    assert set(rep) == {"classic", "likely_slab_plain", "sim_moments",
+    assert set(rep) == {"classic", "likely_slab_plain", "noise", "sim_moments",
                         "sim_envelope_cpu", "sim_envelope_cuda"}
+    assert len(rep["noise"]) == len(parity.NOISE_LAYERS)
     assert rep["classic"]["jump_det_diff_frac"] <= 1e-4
     assert rep["sim_moments"]["mean_dev_sigma"] < 4
 
@@ -420,3 +422,40 @@ def test_run_config_kernels_match_plain_path(cuda_device, tmp_path):
         diff = np.abs(got[k].astype(np.int32) - ref[k].astype(np.int32))
         assert diff.max() <= 1, k
         assert (diff == 0).mean() >= 0.9, k
+
+
+@pytest.mark.cuda
+def test_noise_cube_device_strict_reaches_kernels(cuda_device, tmp_path):
+    """``make_noise_cube`` with ``device-strict`` on the card: the example
+    layers launch the pink transform (each 'R' fill), the read
+    contraction ('P...r' under ``CONTRACT_BACKEND: pallas``) and the block
+    median ('S', 'Pb'), besides the core's kernels; the cube is finite,
+    the same seed gives the same cube, and the plain path's cube (every
+    backend ``xla`` / ``dot``) meets the spread gates.  256^2 with two
+    128-wide channels: the smallest frame whose pink length takes the
+    kernel's branch."""
+    d = str(tmp_path)
+    rp = synth.READ_PATTERN_DEFAULT
+    caldir = synth.make_cal_files(d + "/cal", rp, nside=256, seed=5, channelwidth=128)
+    cal = synth.synth_cal_arrays(256, rp, seed=5, channelwidth=128)
+    synth.write_l1_file(d + "/L1.asdf",
+                        synth.synth_l1_cube(cal, rp, rate_dn_s=10.0, nborder=4), rp,
+                        amp33=synth.synth_amp33(256, len(rp), 128))
+    cfg = {"IN": d + "/L1.asdf", "OUT": d + "/L2.asdf", "CALDIR": caldir,
+           "SKYORDER": 2, "SLICEOUT": True, "CONTRACT_BACKEND": "pallas",
+           "NOISE": {"LAYER": list(parity.NOISE_LAYERS), "SEED": 15000,
+                     "BACKEND": "device-strict"}}
+    l1_to_l2.calibrateimage(cfg, device=cuda_device)
+    mods = (pink_cuda, contract_cuda, median_cuda, linearity_cuda, ipc_cuda)
+    n0 = [m.launches for m in mods]
+    cube = noise.make_noise_cube(cfg, device=cuda_device)
+    assert all(m.launches > n for m, n in zip(mods, n0)), [m.launches for m in mods]
+    assert cube.shape == (2, 248, 248) and np.isfinite(cube).all()
+    np.testing.assert_array_equal(noise.make_noise_cube(cfg, device=cuda_device), cube)
+    plain = dict(cfg, IPC_BACKEND="xla", LIN_BACKEND="xla", SKY_BACKEND="xla",
+                 PINK_BACKEND="xla", CONTRACT_BACKEND="dot")
+    n1 = [m.launches for m in mods]
+    ref = noise.make_noise_cube(plain, device=cuda_device)
+    assert [m.launches for m in mods] == n1
+    good = np.asarray(asdf_lite.open(cfg["OUT"])["roman"]["dq"]) == 0
+    parity.compare_noise(ref, cube, good, "noise, kernels vs plain, 256^2")

@@ -58,7 +58,10 @@ def test_every_module_imports_without_jax():
     assert int(r.stdout.strip()) >= 32
     for m in ("ops.contract_cuda", "ops.pink", "ops.pink_cuda", "ops.rand",
               "utils.skymodel", "pipeline.sim_to_l1", "ops.ipc_slab",
-              "ops.likely", "ops.flat", "utils.bitutils"):
+              "ops.likely", "ops.flat", "utils.bitutils", "galpoisson",
+              "galpoisson.pearson", "galpoisson.pearson_torch",
+              "galpoisson.find_tilnus", "galpoisson.denoise_construct",
+              "pipeline.noise", "pipeline.noise_core"):
         assert "romanimpreprocess_tpu_torch." + m in _modules()
 
 

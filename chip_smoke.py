@@ -70,7 +70,25 @@ Phases, each printing one JSON line:
    the two cubes held within 1 DN; the warm sim timed and profiled on
    both paths.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
+8. the focal plane (``parallel``, ``pipeline/batch``,
+   ``validation/many_realizations``) on the card's mesh, every backend
+   ``auto`` and ``CONTRACT_BACKEND: pallas``: the exposure runner
+   (``make_fpa_exposure_runner``) over 18 lanes at 4096^2 x 6 groups with
+   the 8 production layers (``batch.DEFAULT_LAYERS``), the classic
+   phase's CALDIR shared and staged once, 18 rate maps from ``synth``
+   seeds 0-17; warmed with 2 lanes, then the 18-lane call timed (wall,
+   per lane, peak memory) with launch counts read around it; lanes 0
+   and 17 held bit for bit to single-SCA runs at their ``lane_seed``,
+   the 2-lane call to the first two lanes, lane 0 to the plain path at
+   the spread gates.  ``calibrate_fpa`` of four SCAs on two CALDIR paths
+   (one a symlinked copy), each written file held bit for bit to
+   ``calibrateimage``'s.  ``batch.run`` of two SCAs with their own cal
+   sets, serially and with ``--fpa``: identical files.  The Monte-Carlo
+   drivers on the sim phase's scene (``run_many_mesh`` 4 realizations,
+   ``run_many`` 2) at the JAX package's validation gates.
+
+Then the ``{"kernels": [...]}`` line (with each kernel's launches in
+the 18-lane call, ``fpa_launches``), the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero before that line.  There is no CPU path: without
 CUDA, or outside a checkout of the repository, the script fails.
@@ -1446,6 +1464,234 @@ def phase_sim(card, device, d, caldir, nside=NSIDE):
 
 
 # --------------------------------------------------------------------------
+# Phase 8: the focal plane
+# --------------------------------------------------------------------------
+
+FPA_SEED = 9000
+FPA_LANES = 18
+#: the kernels every lane of the exposure runner reaches
+FPA_KERNELS = ("linearity", "ipc_rev2_frame", "block_nanmedian", "ipc_fwd_cube",
+               "pink_frames", "contract_reads")
+
+
+def _same_files(a, b, rels, what):
+    """The files ``rels`` under directories ``a`` and ``b``: ASDF trees
+    bit for bit (``parity.same_tree``: the L2 log's ``Timing:`` line and
+    the directory in the recorded configs aside), other files byte for
+    byte."""
+    from romanimpreprocess_tpu_torch.io import asdf_lite
+    from romanimpreprocess_tpu_torch.utils import parity
+
+    for rel in rels:
+        if rel.endswith(".asdf"):
+            parity.same_tree(asdf_lite.open(f"{a}/{rel}").tree,
+                             asdf_lite.open(f"{b}/{rel}").tree, f"{what}: {rel}",
+                             subst=(a, b))
+        else:
+            with open(f"{a}/{rel}", "rb") as f, open(f"{b}/{rel}", "rb") as g:
+                require(f.read() == g.read(), f"{what}: {rel} differs")
+
+
+def _cold_caches():
+    """Empty the port's host and device caches: the next run reads and
+    stages its cal packs anew."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.io import calfiles
+    from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
+
+    for cache in (calfiles._PACK_CACHE, l1_to_l2._DEVICE_CACHE,
+                  l1_to_l2._IPC_PRECAL_CACHE, l1_to_l2._WCS_CACHE):
+        cache.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_fpa(card, d, caldir, l1path, scene):
+    """The focal plane at full width on ``cuda``: the 18-lane exposure
+    runner, ``calibrate_fpa``, ``batch.run`` serial against ``--fpa``,
+    and the Monte-Carlo drivers.  Returns the launches of each kernel in
+    the timed 18-lane call."""
+    import torch
+
+    from romanimpreprocess_tpu_torch import parallel, synth
+    from romanimpreprocess_tpu_torch.config import pattern_to_reads
+    from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
+    from romanimpreprocess_tpu_torch.pipeline import batch, l1_to_l2, noise, noise_core
+    from romanimpreprocess_tpu_torch.utils import parity
+    from romanimpreprocess_tpu_torch.validation import many_realizations
+
+    counters = kernel_counters()
+    mesh = parallel.sca_mesh()
+    dev = mesh[0]
+    rp = synth.READ_PATTERN_DEFAULT
+    cw = max(NSIDE // 32, 4)
+    act = (slice(NB, -NB), slice(NB, -NB))
+    res = {"phase": "fpa", "ok": True, "card": card, "nside": NSIDE, "ngrp": NGRP,
+           "mesh": [str(x) for x in mesh]}
+
+    # ---- 1. the exposure runner over 18 lanes ----
+    layers = list(batch.DEFAULT_LAYERS)
+    cfg = {"IN": l1path, "CALDIR": caldir, "SKYORDER": 2, "IPC_BACKEND": "auto",
+           "LIN_BACKEND": "auto", "SKY_BACKEND": "auto", "PINK_BACKEND": "auto",
+           "CONTRACT_BACKEND": "pallas"}
+    pack = calfiles.load_caldir_cached(caldir)
+    l1 = asdf_lite.open(l1path)["roman"]
+    prep = l1_to_l2.prepare_inputs(l1, cfg, pack, device=dev)
+    t0 = time.perf_counter()
+    rates = [synth.injected_rate(NSIDE, 10.0, nborder=NB, seed=s)[act] * pack.gain[act]
+             for s in range(FPA_LANES)]
+    arr = noise_core.exposure_arrays(prep, rates[0])
+    batch_arrs = parallel.broadcast_batch({k: v for k, v in arr.items() if k != "rate"},
+                                          FPA_LANES)
+    batch_arrs["rate"] = torch.from_numpy(np.stack(rates)).to(dev)
+    lanes = parallel.shard_batch(mesh, batch_arrs)
+    res["rates_s"] = time.perf_counter() - t0
+    run = parallel.make_fpa_exposure_runner(prep, pack, layers, mesh, config=cfg)
+    t0 = time.perf_counter()
+    warm, _, _ = run(FPA_SEED, lanes[:2])
+    torch.cuda.synchronize()
+    res["warmup_2_lanes_s"] = time.perf_counter() - t0
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res["resident_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    cube, base, checks = run(FPA_SEED, lanes)
+    torch.cuda.synchronize()
+    res["wall_s_18_lanes"] = time.perf_counter() - t0
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    fpa_launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    lane_s = [t for e in run.timings for t in e["lane_s"]]
+    res["lane_s"] = lane_s
+    res["median_lane_s"] = statistics.median(lane_s)
+    res["launches"] = fpa_launches
+    for k in FPA_KERNELS:
+        require(fpa_launches[k] >= 1, f"fpa: kernel {k} was not launched: {fpa_launches}")
+
+    na = NSIDE - 2 * NB
+    require(tuple(cube.shape) == (FPA_LANES, len(layers), na, na)
+            and tuple(checks.shape) == (FPA_LANES,), f"fpa cube {tuple(cube.shape)}")
+    require(bool(torch.isfinite(cube).all()), "fpa cube not finite")
+    require(torch.equal(warm, cube[:2]), "fpa: two lanes alone differ from the 18-lane call")
+    for i in range(1, FPA_LANES):
+        require(not torch.equal(cube[0, 0], cube[i, 0]), f"fpa: lanes 0 and {i} agree")
+    run_1 = noise_core.make_staged_exposure_runner(prep, pack, layers, config=cfg)
+    for i in (0, FPA_LANES - 1):
+        c1, b1, k1 = run_1(noise.lane_seed(FPA_SEED, i), lanes[i])
+        require(torch.equal(c1, cube[i]) and torch.equal(k1, checks[i])
+                and all(torch.equal(b1[k], base[k][i]) for k in b1),
+                f"fpa: lane {i} differs from its single-SCA run")
+    del c1, b1, k1, warm
+    res["lanes_bit_for_bit"] = [0, FPA_LANES - 1]
+
+    # lane 0 against the plain path (every backend xla / dot)
+    cfg_p = dict(cfg, IPC_BACKEND="xla", LIN_BACKEND="xla", SKY_BACKEND="xla",
+                 PINK_BACKEND="xla", CONTRACT_BACKEND="dot")
+    prep_p = l1_to_l2.prepare_inputs(l1, cfg_p, pack, device=dev)
+    n0 = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    t0 = time.perf_counter()
+    cube_p, _, _ = noise_core.make_staged_exposure_runner(prep_p, pack, layers, cfg_p)(
+        noise.lane_seed(FPA_SEED, 0), noise_core.exposure_arrays(prep_p, rates[0]))
+    torch.cuda.synchronize()
+    res["lane0_plain_s"] = time.perf_counter() - t0
+    require(n0 == {k: getattr(mod, attr) for k, (mod, attr) in counters.items()},
+            "fpa: the plain lane launched a kernel")
+    good = (base["pdq"][0][act] == 0).cpu().numpy()
+    res["lane0_vs_plain"] = parity.compare_noise(
+        cube_p.cpu().numpy(), cube[0].cpu().numpy(), good, "fpa lane 0, kernels vs plain")
+    del cube, base, checks, cube_p, prep_p, lanes, batch_arrs, run, run_1
+    torch.cuda.empty_cache()
+    print(f"fpa: 18 lanes x {len(layers)} layers at {NSIDE}^2 x {NGRP} groups: "
+          f"{res['wall_s_18_lanes']:.2f} s wall, median lane {res['median_lane_s']:.3f} s, "
+          f"peak {res['peak_mem_gb']:.2f} GB ({card})", flush=True)
+
+    # ---- 2. calibrate_fpa: four SCAs, two CALDIR paths ----
+    cal = synth.synth_cal_arrays(NSIDE, rp, seed=5)
+    l1s = [l1path]
+    for s in (21, 22, 23):
+        p = f"{d}/L1_fpa_{s}.asdf"
+        synth.write_l1_file(p, synth.synth_l1_cube(cal, rp, seed=s, rate_dn_s=10.0,
+                                                   nborder=NB), rp,
+                            amp33=synth.synth_amp33(NSIDE, len(rp), cw, seed=s))
+        l1s.append(p)
+    del cal
+    os.makedirs(d + "/cal_link")
+    caldir_b = {}
+    for k, v in caldir.items():
+        caldir_b[k] = f"{d}/cal_link/{os.path.basename(v)}"
+        os.symlink(v, caldir_b[k])
+    configs = [{"IN": p, "OUT": f"{d}/L2_fpa_{i}.asdf", "CALDIR": (caldir, caldir_b)[i % 2],
+                "SKYORDER": 2, "SLICEOUT": True} for i, p in enumerate(l1s)]
+    trees, timings = parallel.calibrate_fpa(configs, mesh=mesh, write=True, profile=True)
+    res["calibrate_fpa"] = timings
+    for i, (c, tree) in enumerate(zip(configs, trees)):
+        cs = dict(c, OUT=f"{d}/L2_single_{i}.asdf")
+        l1_to_l2.calibrateimage(cs, device=dev)
+        single = asdf_lite.open(cs["OUT"])
+        parity.same_tree(asdf_lite.open(c["OUT"]).tree, single.tree,
+                         f"calibrate_fpa SCA {i} file", subst=(c["OUT"], cs["OUT"]))
+        for k in ("data", "dq", "err", "data_withsky"):
+            require(np.array_equal(np.asarray(tree["roman"][k]), np.asarray(single["roman"][k])),
+                    f"calibrate_fpa SCA {i}: {k} differs from calibrateimage")
+        os.remove(cs["OUT"])
+    del trees
+    print("fpa: calibrate_fpa of 4 SCAs (2 CALDIRs): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in timings.items() if k.endswith("_s"))
+        + f", compute {timings['groups'][0]['compute_s']:.2f} s, peak "
+        f"{timings['peak_mem_gb']:.2f} GB ({card})", flush=True)
+
+    # ---- 3. batch.run, serial against --fpa (each from cold caches) ----
+    for sub in ("IN", "CAL"):
+        os.makedirs(f"{d}/batch/{sub}")
+    for sca in (4, 5):
+        synth.make_scene_file(f"{d}/batch/IN/Roman_Test_truth_F184_163_{sca}.fits",
+                              nside_active=na)
+        synth.make_cal_files(f"{d}/batch/CAL/roman_wfi", rp, nside=NSIDE, seed=5,
+                             tag="T", sca=sca, channelwidth=cw)
+    args = [f"--in={d}/batch/IN", f"--cal={d}/batch/CAL", "--tag=T", "--sca=all",
+            "--reads=" + ",".join(map(str, pattern_to_reads(rp))),
+            "--layers=Rz4PbrS2C1,Rz4OS2C2"]
+    walls = {}
+    for name, extra in (("serial", []), ("fpa", ["--fpa"])):
+        _cold_caches()  # each run reads its cal sets, as a fresh process would
+        t0 = time.perf_counter()
+        batch.run(args + [f"--out={d}/batch/{name}"] + extra)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    rels = []
+    for sca in (4, 5):
+        stem = f"F184_163_{sca}"
+        rels += [f"L1/sim_L1_{stem}.asdf", f"L1/sim_L1_{stem}_asdf_wcshead.txt",
+                 f"L2/sim_L2_{stem}.asdf", f"L2/sim_L2_{stem}_noise.asdf",
+                 f"L2/sim_L2_{stem}_mask.fits"]
+    _same_files(f"{d}/batch/serial", f"{d}/batch/fpa", rels, "batch --fpa vs serial")
+    res["batch_wall_s"] = walls
+    shutil.rmtree(f"{d}/batch", ignore_errors=True)
+    print(f"fpa: batch.run of 2 SCAs: serial {walls['serial']:.2f} s, --fpa "
+          f"{walls['fpa']:.2f} s, files identical ({card})", flush=True)
+
+    # ---- 4. the Monte-Carlo drivers on the phase-7 scene ----
+    c1 = {"IN": scene, "OUT": d + "/val_L1.asdf", "READS": pattern_to_reads(rp),
+          "CALDIR": caldir, "SEED": 100}
+    c2 = {"IN": d + "/val_L1.asdf", "OUT": d + "/val_L2.asdf",
+          "FITSWCS": d + "/val_L1_asdf_wcshead.txt", "CALDIR": caldir, "SKYORDER": 2}
+    t0 = time.perf_counter()
+    stack_m = many_realizations.run_many_mesh(c1, c2, nrun=4, mesh=mesh)
+    res["run_many_mesh_s"] = time.perf_counter() - t0
+    res["run_many_mesh"] = parity.mc_stack(stack_m, 3, "run_many_mesh")
+    del stack_m
+    t0 = time.perf_counter()
+    stack_s = many_realizations.run_many(c1, c2, nrun=2, device=dev)
+    res["run_many_s"] = time.perf_counter() - t0
+    res["run_many"] = parity.mc_stack(stack_s, 2, "run_many")
+    del stack_s
+    emit(res)
+    return fpa_launches
+
+
+# --------------------------------------------------------------------------
 
 def main():
     import torch
@@ -1489,6 +1735,9 @@ def main():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         launches.update(phase_sim(card, torch.device("cuda"), d, caldir))
+        torch.cuda.empty_cache()
+        fpa_launches = phase_fpa(card, d, caldir, l1path,
+                                 d + "/truth_F184_163_4.fits")
     finally:
         shutil.rmtree(d, ignore_errors=True)
     require(all(b == "cuda" for b in backends.values()),
@@ -1508,7 +1757,9 @@ def main():
             # launches in the noise phase's generate_all_noise call, and
             # in the one under the likelihood fit and pallas-stream
             noise_launches=noise_launches[name],
-            noise_launches_likely_stream=noise_launches_likely[name]))
+            noise_launches_likely_stream=noise_launches_likely[name],
+            # launches in the focal-plane phase's timed 18-lane call
+            fpa_launches=fpa_launches[name]))
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -16,6 +16,7 @@ wfi18_transient (transient_table per detector: first-read row-profile
 taus).
 """
 
+import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -161,6 +162,10 @@ def load_caldir(caldir):
 
 
 _PACK_CACHE = hostcache.BoundedCache(40)
+# one lock per CALDIR key: pool threads asking for the same CALDIR at
+# once get one pack (one set of array ids, so one device copy)
+_KEY_LOCKS = {}
+_KEY_LOCKS_LOCK = threading.Lock()
 
 
 def load_caldir_cached(caldir, max_entries=40):
@@ -175,12 +180,15 @@ def load_caldir_cached(caldir, max_entries=40):
     (new array ids) missing the id-keyed ipc_precal cache.
     """
     key = tuple(sorted((k, str(v)) for k, v in caldir.items()))
-    hit = _PACK_CACHE.get(key)
-    if hit is not None:
-        return hit
-    pack = load_caldir(caldir)
-    _PACK_CACHE.capacity = int(max_entries)
-    return _PACK_CACHE.put(key, pack)
+    with _KEY_LOCKS_LOCK:
+        lock = _KEY_LOCKS.setdefault(key, threading.Lock())
+    with lock:
+        hit = _PACK_CACHE.get(key)
+        if hit is not None:
+            return hit
+        pack = load_caldir(caldir)
+        _PACK_CACHE.capacity = int(max_entries)
+        return _PACK_CACHE.put(key, pack)
 
 
 def amp33_optimal_slope(pack):

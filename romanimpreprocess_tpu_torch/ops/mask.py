@@ -64,6 +64,24 @@ class CombinedMask:
                 mask = mask | dilate_box(layer, 2)
         return mask
 
+    def convert_file(self, file_in, file_mask):
+        """L2 ASDF -> mask file: ``.asdf`` (the boolean mask) or
+        ``.fits`` (the data with masked pixels at -1000, then an int8
+        MASK extension).  Reference ``maskhandling.convert_file:119-149``."""
+        from ..io import asdf_lite, fits_lite
+
+        f_in = asdf_lite.open(file_in)
+        locmask = self.build(f_in["roman"]["dq"]).numpy()
+        if file_mask.endswith(".asdf"):
+            asdf_lite.AsdfFile({"mask": locmask}).write_to(file_mask)
+        elif file_mask.endswith(".fits"):
+            data = np.asarray(f_in["roman"]["data"])
+            h1 = fits_lite.PrimaryHDU(
+                np.where(locmask, -1000.0, data).astype(np.float32))
+            h2 = fits_lite.ImageHDU(np.where(locmask, 1, 0).astype(np.int8),
+                                    name="MASK")
+            fits_lite.HDUList([h1, h2]).writeto(file_mask, overwrite=True)
+
 
 #: The canonical mask choice of the reference (``maskhandling.py:154-180``).
 PixelMask1 = CombinedMask(

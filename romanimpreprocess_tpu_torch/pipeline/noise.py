@@ -37,7 +37,9 @@ layer, component))`` (:func:`layer_stream`; components :data:`R_STREAM`,
 :data:`P_STREAM`, :data:`O_STREAM`).  So layers are independent, a
 layer's draws do not depend on the layers before it, and a run does not
 depend on the runs before it, as with the reference's folded JAX keys
-(whose streams torch cannot reproduce: parity is statistical).
+(whose streams torch cannot reproduce: parity is statistical).  Lane
+``i`` of a focal-plane runner (``mesh=``, :mod:`.noise_core`) is the
+single-SCA runner at :func:`lane_seed` ``(SEED, i)``.
 """
 
 import argparse
@@ -56,9 +58,10 @@ from . import l1_to_l2, sim_to_l1
 
 #: stream components of one layer
 R_STREAM, P_STREAM, O_STREAM = 0, 1, 2
-#: first element of a stream's spawn key: the layers, and the exposure
-#: runner's sim and fill (:mod:`.noise_core`)
-LAYER_STREAMS, SIM_STREAM, FILL_STREAM = 0, 1, 2
+#: first element of a stream's spawn key: the layers, the exposure
+#: runner's sim and fill (:mod:`.noise_core`), and the lanes of the
+#: focal-plane runners (:func:`lane_seed`)
+LAYER_STREAMS, SIM_STREAM, FILL_STREAM, LANE_STREAMS = 0, 1, 2, 3
 
 
 def stream(seed, key, device):
@@ -67,6 +70,16 @@ def stream(seed, key, device):
     ``numpy.random.SeedSequence(seed, spawn_key=key)``."""
     ss = np.random.SeedSequence(int(seed), spawn_key=tuple(int(k) for k in key))
     return rand.sim_generator(int(ss.generate_state(1, np.uint64)[0]), device)
+
+
+def lane_seed(seed, lane):
+    """The seed of lane ``lane`` of a focal-plane run at exposure seed
+    ``seed``: the first 64-bit word of ``numpy.random.SeedSequence(seed,
+    spawn_key=(LANE_STREAMS, lane))``.  A lane runs exactly the
+    single-SCA runner at this seed, so its streams depend on ``seed``
+    and ``lane`` only, never on the number of lanes or mesh entries."""
+    ss = np.random.SeedSequence(int(seed), spawn_key=(LANE_STREAMS, int(lane)))
+    return int(ss.generate_state(1, np.uint64)[0])
 
 
 def layer_stream(seed, i_layer, component, device):

@@ -16,6 +16,18 @@ The runners, each returning ``run(seed, arrs) -> (cube, base, checksum)``:
   ``fill_in_refdata_and_1f``) -> base core -> layers, from a rate map
   (:func:`exposure_arrays`).
 
+With ``mesh=`` (:func:`..parallel.sca_mesh`) each runner is the
+focal-plane form: ``run(seed, batch)`` takes one exposure seed and a
+batch with a leading SCA axis (:func:`..parallel.broadcast_batch`,
+:func:`..parallel.shard_batch`); lane ``i`` runs on mesh entry ``i %
+len(mesh)`` as the single-SCA runner at ``noise.lane_seed(seed, i)``,
+so it equals that runner bit for bit and its streams do not depend on
+the number of lanes or entries.  (The JAX package derives lane keys by
+splitting one key, because its vmapped draws read lane 0's key only;
+here each lane is a run of its own.)  The outputs come stacked on the
+first entry's device: ``(cube (n_sca, nlayers, na, na), base, checksums
+(n_sca,))``.
+
 :func:`make_exposure_noise_core` and :func:`make_full_exposure_core`
 are the same runners giving ``(cube, base)``: the JAX package compiles
 those as single programs, which torch has no need for.  Random streams:
@@ -148,6 +160,24 @@ class _Stages:
             cfg["exclude_first"])
         self.tilnus = _tilnus_table(self.read_pattern, self.weightvecs, start,
                                     self.frame_time)
+        self.sim_ipc = "cuda" if cfg["ipc"] in ("cuda", "slab", "slab-stream") else "xla"
+
+    def simulate(self, seed, arrs):
+        """sim -> L1 -> fill of one exposure from ``arrs["rate"]``
+        (:func:`exposure_arrays`): the sim draws from stream
+        ``(SIM_STREAM,)`` of ``seed``, the fill from ``(FILL_STREAM,)``.
+        Returns ``arrs`` with the exposure's ``data`` (and ``amp33``)."""
+        dev = arrs["rate"].device
+        res, _l1dq = sim_to_l1.make_l1_fullcal(
+            noise.stream(seed, (noise.SIM_STREAM,), dev), arrs["rate"],
+            self.read_pattern, self.pack, frame_time=self.frame_time, crparam={},
+            ipc_backend=self.sim_ipc, contract=self.cfg["contract"])
+        data, amp33 = self.fill(noise.stream(seed, (noise.FILL_STREAM,), dev), res)
+        del res
+        arrs0 = dict(arrs, data=data)
+        if amp33 is not None:
+            arrs0["amp33"] = amp33
+        return arrs0
 
     def fill(self, gen, im_act):
         """Reference-pixel / 1-f / amp33 fill around the (ngrp, na, na)
@@ -279,7 +309,26 @@ def _finish(diffs, base):
     return cube, base, cube.sum()
 
 
-def make_staged_noise_runner(prep, pack, layers, config=None):
+def mesh_runner(run1, mesh):
+    """The focal-plane form of a single-SCA runner ``run1(seed, arrs)``:
+    ``run(seed, batch)`` runs lane ``i`` as ``run1(noise.lane_seed(seed,
+    i), lane_i)`` on mesh entry ``i % len(mesh)``, the outputs stacked
+    on the first entry's device (module docstring).  ``run.timings``:
+    the last call's per-entry and per-lane wall times
+    (:func:`..parallel.run_lanes`)."""
+    from .. import parallel
+
+    def run(seed, batch):
+        lanes = parallel.lanes_of(mesh, batch)
+        return parallel.run_stacked(
+            mesh, lambda i, lane: run1(noise.lane_seed(seed, i), lane), lanes,
+            timings=run.timings)
+
+    run.timings = []
+    return run
+
+
+def make_staged_noise_runner(prep, pack, layers, config=None, mesh=None):
     """Device-resident noise stack for an EXISTING L1 exposure (the
     config-driven ``generate_all_noise`` path).
 
@@ -288,7 +337,8 @@ def make_staged_noise_runner(prep, pack, layers, config=None):
     whose ``CONTRACT_BACKEND`` overrides the prep's.  Returns ``run(seed,
     arrs) -> (noise_cube (nlayers, na, na), base_out, checksum)`` on the
     prep's device, ``arrs`` being ``prep["arr"]`` (``data`` = the base L1
-    cube); ``checksum`` is the cube's sum.
+    cube); ``checksum`` is the cube's sum.  ``mesh``: the focal-plane
+    form (module docstring), over a batch of such bundles.
     """
     st = _Stages(prep, pack, config)
 
@@ -297,10 +347,10 @@ def make_staged_noise_runner(prep, pack, layers, config=None):
             base = st.core_base(arrs)
         return _finish(_run_layers(st, layers, seed, arrs, base, arrs["data"]), base)
 
-    return run
+    return run if mesh is None else mesh_runner(run, mesh)
 
 
-def make_staged_exposure_runner(prep, pack, layers, config=None):
+def make_staged_exposure_runner(prep, pack, layers, config=None, mesh=None):
     """Full exposure on the device: rate map -> L1 synthesis
     (:func:`..sim_to_l1.make_l1_fullcal`: Poisson/CR accumulation, IL
     forward model, read noise) -> reference-pixel / 1-f / amp33 fill ->
@@ -311,28 +361,18 @@ def make_staged_exposure_runner(prep, pack, layers, config=None):
     Returns ``run(seed, arrs) -> (noise_cube, base_out, checksum)``;
     ``arrs`` is :func:`exposure_arrays`.  The sim draws from stream
     ``(SIM_STREAM,)`` of ``seed``, the fill from ``(FILL_STREAM,)``, the
-    layers as in :func:`make_staged_noise_runner`.
+    layers as in :func:`make_staged_noise_runner`.  ``mesh``: the
+    focal-plane form (module docstring), over a batch of such bundles.
     """
     st = _Stages(prep, pack, config)
-    cfg = st.cfg
-    ipc_backend = "cuda" if cfg["ipc"] in ("cuda", "slab", "slab-stream") else "xla"
 
     def run(seed, arrs):
-        dev = arrs["rate"].device
-        res, _l1dq = sim_to_l1.make_l1_fullcal(
-            noise.stream(seed, (noise.SIM_STREAM,), dev), arrs["rate"],
-            st.read_pattern, pack, frame_time=st.frame_time, crparam={},
-            ipc_backend=ipc_backend, contract=cfg["contract"])
-        data, amp33 = st.fill(noise.stream(seed, (noise.FILL_STREAM,), dev), res)
-        del res
-        arrs0 = dict(arrs, data=data)
-        if amp33 is not None:
-            arrs0["amp33"] = amp33
+        arrs0 = st.simulate(seed, arrs)
         with torch.profiler.record_function(f"{PREFIX}.base"):
             base = st.core_base(arrs0)
-        return _finish(_run_layers(st, layers, seed, arrs0, base, data), base)
+        return _finish(_run_layers(st, layers, seed, arrs0, base, arrs0["data"]), base)
 
-    return run
+    return run if mesh is None else mesh_runner(run, mesh)
 
 
 def make_exposure_noise_core(prep, pack, layers, config=None):

@@ -15,14 +15,15 @@ import threading
 
 
 class BoundedCache:
-    """Insertion-ordered mapping with locked evict-oldest inserts.
+    """Insertion-ordered mapping with locked reads and evict-oldest
+    inserts.
 
-    ``get`` is lock-free (CPython dict reads are atomic); ``put``
-    evicts the oldest entries down to ``capacity`` under a lock (a
-    concurrent ``pop`` during ``next(iter(...))`` raises RuntimeError
-    otherwise) and returns the inserted value — callers must use that
-    return rather than re-reading the cache, which a concurrent
-    eviction may already have emptied.
+    ``get`` and ``put`` take one lock, so the focal-plane drivers' pool
+    threads (:mod:`..parallel`) never read a half-evicted mapping;
+    ``put`` evicts the oldest entries down to ``capacity`` and returns
+    the inserted value — callers must use that return rather than
+    re-reading the cache, which another thread's eviction may already
+    have emptied.
     """
 
     def __init__(self, capacity):
@@ -31,15 +32,13 @@ class BoundedCache:
         self._lock = threading.Lock()
 
     def get(self, key, default=None):
-        return self._d.get(key, default)
+        with self._lock:
+            return self._d.get(key, default)
 
     def put(self, key, value):
         with self._lock:
-            while len(self._d) >= self.capacity:
-                try:
-                    self._d.pop(next(iter(self._d)), None)
-                except (StopIteration, RuntimeError):  # pragma: no cover
-                    break
+            while self._d and len(self._d) >= self.capacity:
+                self._d.pop(next(iter(self._d)))
             self._d[key] = value
         return value
 
@@ -48,4 +47,5 @@ class BoundedCache:
             self._d.clear()
 
     def __len__(self):
-        return len(self._d)
+        with self._lock:
+            return len(self._d)

@@ -30,6 +30,12 @@ machine): ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 - :func:`sim_envelope`: a simulated exposure through ``calibrateimage``
   at 120^2 active pixels recovers its scene and its cosmic rays, at the
   JAX package's gates (``tests/test_workflow.py``, ``test_run_all.py``).
+- :func:`mc_stack`: a Monte-Carlo statistics stack
+  (``validation.many_realizations``) at the JAX package's gates
+  (``tests/test_validation.py``).
+- :func:`same_tree`: two ASDF trees of one product from two of the
+  port's paths (serial and focal-plane): the same keys, types and
+  values, arrays bit for bit, the L2 log's ``Timing:`` lines aside.
 """
 
 import numpy as np
@@ -270,3 +276,66 @@ def plain_devices(d, ref="cpu", dev="cuda", nside=128, nseed=8):
             asdf_lite.open(c2["OUT"])["roman"], asdf_lite.open(c1["OUT"])["roman"],
             expected, f"sim -> L1 -> L2 on {x}")
     return rep
+
+
+def mc_stack(stack, min_count, what, inner=20):
+    """``stack``: the (8, n, n) statistics cube of ``nrun`` realizations;
+    on the pixels ``inner`` or more from the edge, those unmasked in at
+    least ``min_count`` realizations ("good"): more than 80% good, the
+    ramp accumulates (median last-minus-second group difference > 0),
+    |median bias| < 0.3 DN/s, the median reported error over the median
+    empirical std in 0.3-4.  Returns what was measured."""
+    _require(bool(np.isfinite(stack).all()), f"{what}: stack not finite")
+    _ideal, med_diff, _img, count, _mean, std, bias, med_err = stack
+    sl = np.s_[inner:-inner, inner:-inner]
+    good = count[sl] >= min_count
+    rep = {"good_frac": float(good.mean()),
+           "median_l1_diff": float(np.median(med_diff[sl])),
+           "median_bias": float(np.median(bias[sl][good])),
+           "median_std": float(np.median(std[sl][good])),
+           "median_err": float(np.median(med_err[sl][good]))}
+    rep["err_over_std"] = rep["median_err"] / (rep["median_std"] + 1e-9)
+    _require(rep["good_frac"] > 0.8 and rep["median_l1_diff"] > 0
+             and abs(rep["median_bias"]) < 0.3 and 0.3 < rep["err_over_std"] < 4.0,
+             f"{what}: {rep}")
+    return rep
+
+
+def _strip_timing(log):
+    return "".join(ln for ln in log.splitlines(keepends=True)
+                   if not ln.startswith("Timing:"))
+
+
+def same_tree(a, b, what, subst=None, _path="tree"):
+    """Hold ``b`` to ``a`` bit for bit: dict keys, list lengths, scalar
+    and string values, array dtypes, shapes and values (NaN equal to
+    NaN).  ``subst``: ``(old, new)``, replaced in ``a``'s strings first
+    (the output directory of each run); a ``log`` string is compared
+    without its ``Timing:`` lines."""
+    if isinstance(a, dict):
+        _require(isinstance(b, dict) and set(a) == set(b),
+                 f"{what}: {_path}: keys {sorted(a)} vs "
+                 f"{sorted(b) if isinstance(b, dict) else type(b)}")
+        for k in a:
+            same_tree(a[k], b[k], what, subst, f"{_path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        _require(isinstance(b, (list, tuple)) and len(a) == len(b),
+                 f"{what}: {_path}: {a!r} vs {b!r}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, what, subst, f"{_path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        b = np.asarray(b)
+        _require(a.dtype == b.dtype and a.shape == b.shape,
+                 f"{what}: {_path}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        same = (a == b) | ((a != a) & (b != b))
+        _require(bool(np.all(same)), f"{what}: {_path} differs on "
+                 f"{int(np.size(same) - np.count_nonzero(same))} elements")
+    elif isinstance(a, str):
+        if subst is not None:
+            a = a.replace(*subst)
+        if _path.endswith(".log"):
+            a, b = _strip_timing(a), _strip_timing(str(b))
+        _require(a == b, f"{what}: {_path}: {a!r} vs {b!r}")
+    else:
+        _require(type(a) is type(b) and (a == b or (a != a and b != b)),
+                 f"{what}: {_path}: {a!r} vs {b!r}")

@@ -459,3 +459,99 @@ def test_noise_cube_device_strict_reaches_kernels(cuda_device, tmp_path):
     assert [m.launches for m in mods] == n1
     good = np.asarray(asdf_lite.open(cfg["OUT"])["roman"]["dq"]) == 0
     parity.compare_noise(ref, cube, good, "noise, kernels vs plain, 256^2")
+
+
+# --------------------------------------------------------------------------
+# the focal-plane layer on the card
+# --------------------------------------------------------------------------
+
+def _fpa_inputs(d, scas, nside=128):
+    """Per SCA a port CALDIR (its own seed) and synthetic L1 at ``nside``^2:
+    the ``calibrateimage`` configs."""
+    rp = synth.READ_PATTERN_DEFAULT
+    configs = []
+    for sca in scas:
+        caldir = synth.make_cal_files(d + f"/cal{sca}", rp, nside=nside, seed=sca, sca=sca)
+        cal = synth.synth_cal_arrays(nside, rp, seed=sca)
+        synth.write_l1_file(d + f"/L1_{sca}.asdf",
+                            synth.synth_l1_cube(cal, rp, seed=sca, rate_dn_s=10.0,
+                                                nborder=4), rp,
+                            amp33=synth.synth_amp33(nside, len(rp), max(nside // 32, 4)))
+        configs.append({"IN": d + f"/L1_{sca}.asdf", "OUT": d + f"/L2fpa_{sca}.asdf",
+                        "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True})
+    return configs
+
+
+@pytest.mark.cuda
+def test_calibrate_fpa_is_calibrateimage_on_cuda(cuda_device, tmp_path):
+    from romanimpreprocess_tpu_torch import parallel
+
+    d = str(tmp_path)
+    configs = _fpa_inputs(d, (4, 5, 7))
+    n0 = linearity_cuda.launches
+    trees, timings = parallel.calibrate_fpa(configs, mesh=parallel.sca_mesh(), profile=True)
+    assert linearity_cuda.launches == n0 + 3
+    assert timings["peak_mem_gb"] > 0 and sum(g["n_sca"] for g in timings["groups"]) == 3
+    for c, tree in zip(configs, trees):
+        cs = dict(c, OUT=c["OUT"][:-5] + "_single.asdf")
+        l1_to_l2.calibrateimage(cs, device=cuda_device)
+        parity.same_tree(asdf_lite.open(c["OUT"]).tree, asdf_lite.open(cs["OUT"]).tree,
+                         c["IN"], subst=(c["OUT"], cs["OUT"]))
+
+
+@pytest.mark.cuda
+def test_exposure_runner_lanes_are_single_runs_on_cuda(cuda_device):
+    from romanimpreprocess_tpu_torch import benchlib, parallel
+    from romanimpreprocess_tpu_torch.pipeline import noise_core
+
+    arr, prep, pack = benchlib.exposure_bundle(nside=256, device=cuda_device,
+                                               config={"CONTRACT_BACKEND": "pallas"})
+    layers = list(parity.NOISE_LAYERS)
+    mesh = parallel.sca_mesh()
+    run_b = parallel.make_fpa_exposure_runner(prep, pack, layers, mesh,
+                                              config={"CONTRACT_BACKEND": "pallas"})
+    counts = lambda: (linearity_cuda.launches, contract_cuda.launches)
+    n0 = counts()
+    cube, base, checks = run_b(11, parallel.broadcast_batch(arr, 3))
+    n1 = counts()
+    run_1 = noise_core.make_staged_exposure_runner(prep, pack, layers,
+                                                   config={"CONTRACT_BACKEND": "pallas"})
+    for i in range(3):
+        c1, b1, k1 = run_1(noise.lane_seed(11, i), arr)
+        if i == 0:  # three lanes launch what three single runs launch
+            one = [b - a for a, b in zip(n1, counts())]
+            assert one[0] >= 4 and one[1] >= 1
+            assert [b - a for a, b in zip(n0, n1)] == [3 * k for k in one]
+        assert torch.equal(cube[i], c1) and torch.equal(checks[i], k1), i
+        assert torch.equal(base["pdq"][i], b1["pdq"]), i
+    assert not torch.equal(cube[0], cube[1])
+
+
+@pytest.mark.cuda
+def test_process_exposure_fpa_files_equal_serial_on_cuda(cuda_device, tmp_path):
+    import os
+
+    from romanimpreprocess_tpu_torch.pipeline import batch
+
+    d = str(tmp_path)
+    rp = synth.READ_PATTERN_DEFAULT
+    os.makedirs(d + "/IN")
+    os.makedirs(d + "/CAL")
+    for sca in (4, 5):
+        synth.make_scene_file(d + f"/IN/Roman_Test_truth_F184_163_{sca}.fits",
+                              nside_active=120, nstars=3)
+        synth.make_cal_files(d + "/CAL/roman_wfi", rp, nside=128, seed=5, tag="T", sca=sca)
+    reads = ",".join(str(v) for g in rp for v in (g[0], g[-1] + 1))
+    args = [f"--in={d}/IN", f"--cal={d}/CAL", "--tag=T", "--sca=all", f"--reads={reads}",
+            "--layers=Rz4PbrS2C1,Rz4OS2C2"]
+    batch.run(args + [f"--out={d}/S"])
+    batch.run(args + [f"--out={d}/F", "--fpa"])
+    for sca in (4, 5):
+        for rel in (f"L1/sim_L1_F184_163_{sca}.asdf", f"L2/sim_L2_F184_163_{sca}.asdf",
+                    f"L2/sim_L2_F184_163_{sca}_noise.asdf"):
+            parity.same_tree(asdf_lite.open(f"{d}/S/{rel}").tree,
+                             asdf_lite.open(f"{d}/F/{rel}").tree, rel,
+                             subst=(f"{d}/S", f"{d}/F"))
+        rel = f"L2/sim_L2_F184_163_{sca}_mask.fits"
+        with open(f"{d}/S/{rel}", "rb") as f, open(f"{d}/F/{rel}", "rb") as g:
+            assert f.read() == g.read()

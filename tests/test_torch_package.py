@@ -61,7 +61,8 @@ def test_every_module_imports_without_jax():
               "ops.likely", "ops.flat", "utils.bitutils", "galpoisson",
               "galpoisson.pearson", "galpoisson.pearson_torch",
               "galpoisson.find_tilnus", "galpoisson.denoise_construct",
-              "pipeline.noise", "pipeline.noise_core"):
+              "pipeline.noise", "pipeline.noise_core", "pipeline.batch", "parallel",
+              "benchlib", "validation.coadd_consumer", "validation.many_realizations"):
         assert "romanimpreprocess_tpu_torch." + m in _modules()
 
 

@@ -555,3 +555,93 @@ def test_process_exposure_fpa_files_equal_serial_on_cuda(cuda_device, tmp_path):
         rel = f"L2/sim_L2_F184_163_{sca}_mask.fits"
         with open(f"{d}/S/{rel}", "rb") as f, open(f"{d}/F/{rel}", "rb") as g:
             assert f.read() == g.read()
+
+
+# ---- calib on the card against the CPU (128^2) ----
+
+def _toy_ramps(n=128, seed=42):
+    """Two flat ramps (15 and 20 frames at 3.04 s) through the toy curve
+    of ``tests/test_characterize.py``, by the port's inverse linearity
+    on the CPU, and the bias frame."""
+    rng = np.random.RandomState(seed)
+    smin = np.full((n, n), 4000.0, np.float32)
+    smax = (56000 + 2000 * rng.uniform(size=(n, n))).astype(np.float32)
+    sref = (smin + 1000).astype(np.float32)
+    data = np.zeros((4, n, n), np.float32)
+    data[2] = 100 + 80 * rng.uniform(size=(n, n))
+    z = 2 * (sref - smin) / (smax - smin) - 1
+    data[1] = (smax - smin) / 2.0 - 3 * data[2] * z
+    data[0] = -data[1] * z - data[2] * (1.5 * z**2 - 0.5)
+    lin = linearity.LinearityData(*(torch.from_numpy(a) for a in (data, smin, smax, sref)),
+                                  torch.zeros((n, n), dtype=torch.int32))
+    ts = [np.arange(1, 16) * 3.04, np.arange(1, 21) * 3.04]
+    ramps = [torch.stack([linearity.invert_linearity(
+        torch.full((n, n), a * t, dtype=torch.float32), lin)[0] for t in tt]).numpy()
+        for a, tt in zip((900.0, 200.0), ts)]
+    bias = linearity.invert_linearity(torch.zeros((n, n)), lin)[0].numpy()
+    return lin, ramps, ts, bias
+
+
+@pytest.mark.cuda
+def test_calib_fit_linearity_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """The linearity fit (the card's batched solve, the CPU's LAPACK):
+    the domain planes and the dq equal, the linearised signal at the
+    four fractions within 1e-4 relative (median) and 1e-3 (largest), the
+    tolerance held against the JAX package on the CPU.  Without
+    ``device`` the fit runs on ``cuda`` (here over four row slabs)."""
+    from romanimpreprocess_tpu_torch.calib import characterize
+
+    lin, ramps, ts, bias = _toy_ramps()
+    cpu = characterize.fit_linearity(ramps, ts, bias, device="cpu")
+    monkeypatch.setattr(characterize, "LINFIT_SLAB_PIXELS", 4096)  # 4 slabs
+    card = characterize.fit_linearity(ramps, ts, bias, device=cuda_device)
+    default = characterize.fit_linearity(ramps, ts, bias)
+    for k in ("Smin", "Smax", "Sref", "dq"):
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    np.testing.assert_array_equal(default["data"], card["data"])
+    max_s = torch.from_numpy(ramps[0][-1])
+    b = torch.from_numpy(bias)
+    for frac in (0.15, 0.4, 0.7, 0.95):
+        S = (b + frac * (max_s - b))[None]
+        out = [linearity.apply_linearity_cube(S, linearity.LinearityData(
+            *(torch.from_numpy(f[k]) for k in ("data", "Smin", "Smax", "Sref")),
+            torch.from_numpy(f["dq"].view(np.int32))))[0].numpy() for f in (cpu, card)]
+        rel = np.abs(out[1] - out[0]) / np.maximum(np.abs(out[0]), 100.0)
+        assert np.median(rel) < 1e-4 and rel.max() < 1e-3, (frac, np.median(rel), rel.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_exp", [4, 12, 100])
+def test_calib_sigma_clip_mean_on_cuda_matches_cpu(cuda_device, n_exp):
+    """Survivor counts equal; means within rtol 1e-6 (summation order).
+    Cosmic-ray outliers, NaN in single exposures and all-NaN pixels."""
+    from romanimpreprocess_tpu_torch.calib import make_dark
+
+    rng = np.random.default_rng(n_exp)
+    stack = rng.normal(1000.0, 5.0, (n_exp, 128, 132)).astype(np.float32)
+    hit = rng.random(stack.shape) < 0.01
+    stack[hit] += rng.uniform(50, 5000, hit.sum()).astype(np.float32)
+    stack[rng.random(stack.shape) < 0.005] = np.nan
+    stack[:, 7, 9] = np.nan
+    m_cpu, c_cpu = make_dark.sigma_clip_mean(torch.from_numpy(stack), counts=True)
+    m_gpu, c_gpu = make_dark.sigma_clip_mean(torch.from_numpy(stack).to(cuda_device),
+                                             counts=True)
+    np.testing.assert_array_equal(c_gpu.cpu().numpy(), c_cpu.numpy())
+    np.testing.assert_allclose(m_gpu.cpu().numpy(), m_cpu.numpy(), rtol=1e-6, atol=0)
+    assert int(c_cpu[7, 9]) == 0
+
+
+@pytest.mark.cuda
+def test_calib_predicted_dark_cube_on_cuda_matches_cpu(cuda_device):
+    """The per-read inverse-linearity forward model, with a read outside
+    every group: rtol 1e-5 plus atol 1e-5 max|ref|."""
+    from romanimpreprocess_tpu_torch.calib import postprocess
+
+    lin, _, _, _ = _toy_ramps()
+    dark = np.random.default_rng(5).uniform(0.01, 2.0, (128, 128)).astype(np.float32)
+    rp = [[0], [1, 2], [4, 5, 6], [7, 8, 9, 10]]
+    cpu = postprocess.predicted_dark_cube(dark, lin, rp, 3.04, 1.5, device="cpu")
+    card = postprocess.predicted_dark_cube(dark, lin, rp, 3.04, 1.5, device=cuda_device)
+    default = postprocess.predicted_dark_cube(dark, lin, rp, 3.04, 1.5)
+    np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-5 * np.abs(cpu).max())
+    np.testing.assert_array_equal(default, card)

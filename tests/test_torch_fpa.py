@@ -99,18 +99,20 @@ def test_calibrate_fpa_is_calibrateimage_bit_for_bit(fpa, i):
 
 @pytest.mark.parametrize("i", [0, 1, 2])
 def test_calibrate_fpa_against_jax(fpa, i):
-    """The slice's gates on DQ, the maps and endslice.  ``skycoefs`` and
-    ``medsky`` are reported, not gated (``gate_sky=False``): on these
-    faint-sky scenes (0.02-0.3 DN/s) the port's ``calibrateimage`` and the
-    JAX one differ there by up to 6e-5 DN/s, outside the gate's rtol 1e-4
-    of the largest coefficient, because the block medians inherit the
-    slope's float32 rounding (about 1e-4 DN/s a pixel); the sky model
-    itself is bounded by the gates on ``data`` and ``data_withsky``,
-    whose difference it is."""
+    """The slice's gates on DQ, the maps and endslice; ``skycoefs`` and
+    ``medsky`` within the bound the maps' measured difference puts on
+    them (``sky="derived"``, ``parity.sky_bounds``).  On these faint-sky
+    scenes (0.02-0.3 DN/s) the two packages' slopes differ in their
+    float32 rounding on nearly every pixel, by up to about 2e-4 DN/s;
+    the block medians inherit that, and a fixed linear map of them is
+    the sky fit, so the coefficients may move by up to ``|A| @`` that
+    (about 4e-4 here), more than the rtol 1e-4 of the largest
+    coefficient that holds where the sky is bright."""
     ref = fpa["jtrees"][i]
     got = fpa["trees"][i]
-    parity.compare_outputs(_l2_outputs(ref), _l2_outputs(got), f"SCA {i}", maps=L2_MAPS,
-                           gate_sky=False)
+    rep = parity.compare_outputs(_l2_outputs(ref), _l2_outputs(got), f"SCA {i}",
+                                 maps=L2_MAPS, sky="derived")
+    assert rep["skycoefs_within_gate"] and rep["medsky_within_gate"]
     assert set(jasdf.open(fpa["jconfigs"][i]["OUT"])["roman"]) == set(
         asdf_lite.open(fpa["configs"][i]["OUT"])["roman"])
 

@@ -19,7 +19,10 @@ Phases, each printing one JSON line:
    on noise and on duplicates, signed zeros and infinities; the pink
    transform's wgmma and mma.sync paths; the IPC kernel's group chunks,
    strips and segments, and the frame inverse at nborder 4, 2 and 0 and
-   with a NaN and infinities in the border rows and columns it reads);
+   with a NaN and infinities in the border rows and columns it reads;
+   its row-slab form on 2 to 5 slabs, each slab bit for bit to its twin
+   and the slabs together to the frame form, at 4096^2 in two slabs; the
+   slab routes' row form likewise against ``correct_cube_fused``);
    CUDA-event medians of the kernel, the plain version and, where one
    exists, a single PyTorch call computing the same function; the least
    time the card could take (bytes over the memory rate, operations
@@ -37,6 +40,17 @@ Phases, each printing one JSON line:
    held against the plain path on the card (every backend ``xla``);
    the warm core timed with CUDA events, kernels and plain path in
    turns, and profiled (the ``ipc`` stage's device time printed).
+4b. row-sharded calibration (``parallel.spatial``): the classic phase's
+   CALDIR and L1 through ``prepare_inputs`` (every backend ``auto``) and
+   the row-sharded core on a one-card mesh of two entries (``cuda:0``
+   twice; kernels A, B in its row-slab form, C), launch counts and the
+   gathered bytes read around that call; held to the single core on the
+   same bundle at the JAX package's ``tests/test_spatial.py`` gate
+   (``parity.row_shard_gate``, the measured drift per output printed);
+   the warm call and the single core timed (CUDA-event medians of 5);
+   again with the likelihood fit, and on three entries (uneven slabs);
+   the likelihood fit under ``IPC_BACKEND: pallas`` and ``pallas-stream``
+   (kernels 6 and 5 in their row form) on two entries.
 5. noise engine: the classic phase's CALDIR and its L1 with sources
    added (10% of the pixels 100 DN/s brighter) through
    ``noise.generate_all_noise`` with the example layers
@@ -101,7 +115,9 @@ Phases, each printing one JSON line:
    of the synthetic ones (finite data on the good pixels).
 
 Then the ``{"kernels": [...]}`` line (with each kernel's launches in
-the 18-lane call, ``fpa_launches``), the ``nvidia-smi`` name/power
+the 18-lane call, ``fpa_launches``, and in the row-sharded core on two
+entries, ``spatial_launches``, and under the slab routes,
+``spatial_slab_launches``), the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero before that line.  There is no CPU path: without
 CUDA, or outside a checkout of the repository, the script fails.
@@ -381,6 +397,86 @@ def check_ipc(ngrp, nside, gen, dev, timed, card, nb=NB, nonfinite=False):
         res["library_ms"] = None  # no single PyTorch call computes it
         res["bound_ms"], res["bound_by"] = bound(
             ipc_cuda.bytes_moved(ngrp, nside), ngrp * na * na * 42, card)
+    return res
+
+
+def check_ipc_rows(ngrp, nside, n, gen, dev, timed, card, nb=NB, nonfinite=False):
+    """The frame inverse on row slabs (``ipc_cuda.ipc_rev2_rows``, the
+    launch with a row count of its own) on the ``n`` slabs of
+    ``utils.rows.split_rows`` with the least halo it reads
+    (``time_frame.check_rows``): the slabs bit for bit to their twins
+    and, together, to the kernel's output on the whole frame."""
+    from romanimpreprocess_tpu_torch.ops import ipc_cuda
+    from romanimpreprocess_tpu_torch.utils.time_frame import check_rows, inputs, slabs
+
+    res = check_rows(ngrp, nside, nb, n, gen, nonfinite)
+    require(res["bit_exact"], f"ipc rows {ngrp}x{nside} in {n} slabs nborder {nb} "
+            f"nonfinite={nonfinite}: not bit-identical to the twins and the frame form")
+    if timed:
+        parts = slabs(*inputs(ngrp, nside, nb, gen), n)
+        res["ms"] = cuda_ms(lambda: [ipc_cuda.ipc_rev2_rows(d, p, g, nb, *r)
+                                     for d, p, g, *r in parts])
+        res["plain_ms"] = cuda_ms(lambda: [ipc_cuda.ipc_rev2_rows_plain(d, p, g, nb, *r)
+                                           for d, p, g, *r in parts], runs=3, warmup=1)
+        res["library_ms"] = None  # no single PyTorch call computes it
+        nbytes = sum(ipc_cuda.rows_bytes_moved(ngrp, d.shape[1], nside, lo, hi)
+                     for d, _, _, _, lo, hi in parts)
+        res["bound_ms"], res["bound_by"] = bound(
+            nbytes, ngrp * (nside - 2 * nb) ** 2 * 42, card)
+    return res
+
+
+def check_slab_rows(ngrp, nside, n, gen, dev, timed, card, nb=NB, padded=True, th=32):
+    """The slab routes on row slabs (``ipc_slab.correct_cube_fused`` /
+    ``correct_cube_stream`` with ``row0, lo, hi``: the slab kernel
+    launched with a row count of its own) on the ``n`` slabs of
+    ``utils.rows.split_rows``: each slab bit for bit to its twin
+    (``correct_cube_plain``), the slabs together bit for bit to
+    ``correct_cube_fused`` on the whole frame."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.ops import ipc_cuda, ipc_slab
+    from romanimpreprocess_tpu_torch.utils.rows import Rows
+    from romanimpreprocess_tpu_torch.utils.time_frame import inputs, same_bits, slabs
+
+    data, planes, gain = inputs(ngrp, nside, nb, gen)
+    na = nside - 2 * nb
+    act = slice(nb, nside - nb)
+    K = planes[:, act, act].reshape(3, 3, na, na).contiguous()
+    kern = (torch.from_numpy(ipc_slab.kernel_planes_padded(K.cpu().numpy(), th=th))
+            .to(dev) if padded else K)
+    whole = ipc_slab.correct_cube_fused(data, kern, gain[act, act], nb, th)
+    parts = [(d, g[Rows(r0, d.shape[1], lo, hi).active(nside, nb), act], r0, lo, hi)
+             for d, _, g, r0, lo, hi in slabs(data, planes, gain, n)]
+    del data, planes, gain, K
+    calls = {name: [lambda p=p, fn=fn: fn(p[0], kern, p[1], nb, th, *p[2:]) for p in parts]
+             for name, fn in (("fused", ipc_slab.correct_cube_fused),
+                              ("stream", ipc_slab.correct_cube_stream))}
+    twins = [lambda p=p: ipc_slab.correct_cube_plain(p[0], kern, p[1], nb, th, *p[2:])
+             for p in parts]
+    got = {name: [fn() for fn in fns] for name, fns in calls.items()}
+    torch.cuda.synchronize()
+    what = f"slab rows {ngrp}x{nside} in {n} slabs nborder {nb} padded={padded}"
+    err = 0.0
+    for i, fn in enumerate(twins):
+        ref = fn()
+        for name in got:
+            err = max(err, (got[name][i] - ref).abs().max().item())
+            require(same_bits(got[name][i], ref),
+                    f"{what}: {name} slab {i} not bit-identical to its twin")
+    for name in got:
+        require(same_bits(torch.cat(got[name], dim=1), whole),
+                f"{what}: {name} slabs differ from correct_cube_fused on the frame")
+    res = {"shape": [ngrp, nside, nside], "slabs": n, "nborder": nb, "padded": padded,
+           "max_abs_err": err, "bit_exact": True, "frame_form_bit_exact": True}
+    if timed:
+        res["ms"] = cuda_ms(lambda: [fn() for fn in calls["fused"]])
+        res["ms_stream"] = cuda_ms(lambda: [fn() for fn in calls["stream"]])
+        res["plain_ms"] = cuda_ms(lambda: [fn() for fn in twins], runs=3, warmup=1)
+        res["library_ms"] = None  # the weights vary per pixel
+        nbytes = sum(ipc_cuda.rows_bytes_moved(ngrp, p[0].shape[1], nside, p[3], p[4])
+                     for p in parts)
+        res["bound_ms"], res["bound_by"] = bound(nbytes, ngrp * na * na * 42, card)
     return res
 
 
@@ -777,11 +873,30 @@ def phase_kernels(card):
     ]
     for k in SLAB_KERNELS:
         small[k] = [r[k] for r in slab_small]
+    # the frame inverse's row-slab form: 2 to 5 slabs, a frame narrower
+    # than one warp strip, nborder 2 and 0, non-finite border values
+    small["ipc_rev2_rows"] = [
+        check_ipc_rows(NGRP, 128, 2, gen, dev, False, card),
+        check_ipc_rows(3, 120, 3, gen, dev, False, card, nonfinite=True),
+        check_ipc_rows(9, 131, 5, gen, dev, False, card, nb=2, nonfinite=True),
+        check_ipc_rows(1, 20, 2, gen, dev, False, card),
+        check_ipc_rows(5, 130, 4, gen, dev, False, card, nb=0)]
+    # the slab routes' row form: raw and pre-padded planes, nborder 2
+    small["correct_rows"] = [
+        check_slab_rows(3, 96, 2, gen, dev, False, card, th=16),
+        check_slab_rows(9, 131, 5, gen, dev, False, card, padded=False, th=8),
+        check_slab_rows(17, 67, 3, gen, dev, False, card, nb=2, padded=False, th=8),
+        check_slab_rows(1, 20, 2, gen, dev, False, card, th=8)]
     emit({"phase": "kernels_small", "ok": True, "results": small})
     na = NSIDE - 2 * NB
     out["linearity"] = check_lin((NGRP, NSIDE, NSIDE), gen, dev, True, card)
     torch.cuda.empty_cache()
     out["ipc_rev2_frame"] = check_ipc(NGRP, NSIDE, gen, dev, True, card)
+    torch.cuda.empty_cache()
+    # the row-slab form as the spatial phase's two-entry mesh cuts the frame
+    out["ipc_rev2_rows"] = check_ipc_rows(NGRP, NSIDE, 2, gen, dev, True, card)
+    torch.cuda.empty_cache()
+    out["correct_rows"] = check_slab_rows(NGRP, NSIDE, 2, gen, dev, True, card)
     torch.cuda.empty_cache()
     out["block_nanmedian"] = check_med(na, na, 8, gen, dev, True, card)
     torch.cuda.empty_cache()
@@ -977,6 +1092,114 @@ def phase_main(card, device, d, caldir, nside=NSIDE):
               f"with the kernels, {ipc_ms['profile_plain']} ms plain", flush=True)
     emit(res)
     return launches, backends, l1path, rate
+
+
+# --------------------------------------------------------------------------
+# Phase 4b: row-sharded calibration of one SCA
+# --------------------------------------------------------------------------
+
+#: the kernel (its counter in :func:`kernel_counters`) of each IPC route
+IPC_ROUTE_KERNEL = {"cuda": "ipc_rev2_frame", "slab": "correct_cube_fused",
+                    "slab-stream": "ipc_rev2_cube_stream"}
+
+
+def _spatial_case(prep, mesh, what, timed=False):
+    """The row-sharded core on ``mesh`` against the single core on the
+    same bundle (``parity.row_shard_gate``), launch counts (one IPC
+    launch a slab) and gathered bytes read around the sharded call;
+    ``timed``: the warm calls of both, CUDA-event medians of 5."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.parallel import spatial
+    from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
+    from romanimpreprocess_tpu_torch.utils import parity
+
+    plan, cfg, geom = prep["plan"], prep["cfg"], prep["geom"]
+    core = l1_to_l2.make_core(plan, cfg, geom)
+    ref = core(prep["arr"])
+    score = spatial.make_spatial_calibrator(plan, cfg, geom, mesh)
+    shards = spatial.shard_rows(mesh, prep["arr"], geom)
+    counters = kernel_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    l1_to_l2.gathered_bytes = 0
+    out = score(shards)
+    torch.cuda.synchronize()
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    rows = launches[IPC_ROUTE_KERNEL[cfg["ipc"]]]
+    res = {"mesh": [str(d) for d in mesh], "slab_rows": [r.n for r in shards.rows],
+           "ipc": cfg["ipc"], "launches": launches, "ipc_rows_launches": rows,
+           "gathered_bytes": l1_to_l2.gathered_bytes}
+    for k in ("linearity", "block_nanmedian", IPC_ROUTE_KERNEL[cfg["ipc"]]):
+        require(launches[k] >= 1, f"{what}: kernel {k} not launched")
+    require(rows == len(mesh), f"{what}: {rows} row-slab IPC launches for {len(mesh)} slabs")
+    full = spatial.gather_rows(out, mesh[0])
+    res["drift"] = parity.row_shard_gate(ref, full, what)
+    res["equal"] = {k: bool(torch.equal(ref[k], full[k])) for k in ref}
+    if timed:
+        res["spatial_ms"] = cuda_ms(lambda: score(shards), runs=5, warmup=1)
+        res["single_ms"] = cuda_ms(lambda: core(prep["arr"]), runs=5, warmup=1)
+    return res
+
+
+def phase_spatial(card, device, d, caldir, l1path):
+    """The main path's CALDIR and L1 through ``prepare_inputs`` (every
+    backend ``auto``) and the row-sharded core (``parallel.spatial``) on a
+    one-card mesh of two entries: the classic fit (timed, launches read
+    around it), the likelihood fit, and the classic fit on three entries
+    (uneven slabs), each held to the single core at the JAX package's
+    ``tests/test_spatial.py`` gate with the measured drift printed."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
+    from romanimpreprocess_tpu_torch.parallel import spatial
+    from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
+
+    t0 = time.perf_counter()
+    pack = calfiles.load_caldir_cached(caldir)
+    l1 = asdf_lite.open(l1path)["roman"]
+    base = {"IN": l1path, "CALDIR": caldir, "SKYORDER": 2, "SLICEOUT": True,
+            "IPC_BACKEND": "auto", "LIN_BACKEND": "auto", "SKY_BACKEND": "auto"}
+    two = spatial.row_mesh(devices=[device, device])
+    res = {"phase": "spatial", "ok": True, "card": card, "nside": NSIDE, "ngrp": NGRP}
+    prep = l1_to_l2.prepare_inputs(l1, base, pack, device=device)
+    require(all(prep["cfg"][k] == "cuda" for k in ("ipc", "lin", "med")),
+            "spatial: auto did not resolve to the CUDA kernels")
+    res["classic_2"] = _spatial_case(prep, two, "spatial classic, 2 entries", timed=True)
+    launches = res["classic_2"]["launches"]
+    res["classic_3"] = _spatial_case(prep, spatial.row_mesh(devices=[device] * 3),
+                                     "spatial classic, 3 entries")
+    del prep
+    torch.cuda.empty_cache()
+    prep = l1_to_l2.prepare_inputs(l1, dict(base, romancal_ramp_fit=True), pack,
+                                   device=device)
+    res["likely_2"] = _spatial_case(prep, two, "spatial likelihood, 2 entries")
+    del prep
+    torch.cuda.empty_cache()
+    # the slab IPC routes' row forms (kernels 6 and 5 on the slabs)
+    prep = l1_to_l2.prepare_inputs(l1, dict(base, romancal_ramp_fit=True,
+                                            IPC_BACKEND="pallas"), pack, device=device)
+    res["likely_pallas_2"] = _spatial_case(prep, two, "spatial likelihood, pallas")
+    prep["cfg"]["ipc"] = "slab-stream"
+    res["likely_pallas_stream_2"] = _spatial_case(
+        prep, two, "spatial likelihood, pallas-stream")
+    del prep
+    torch.cuda.empty_cache()
+    slab_launches = {k: res["likely_pallas_2"]["launches"][k]
+                     + res["likely_pallas_stream_2"]["launches"][k] for k in launches}
+    res["phase_s"] = time.perf_counter() - t0
+    c = res["classic_2"]
+    for k in ("classic_2", "classic_3", "likely_2", "likely_pallas_2",
+              "likely_pallas_stream_2"):
+        eq = all(res[k]["equal"].values())
+        print(f"spatial {k}: largest drift per output {res[k]['drift']} "
+              f"({'equal to the single core' if eq else 'NOT equal to the single core'}"
+              f", within the gate)", flush=True)
+    print(f"spatial: warm call {c['spatial_ms']:.3f} ms on two entries of one card, "
+          f"single core {c['single_ms']:.3f} ms; gathered {c['gathered_bytes']} bytes; "
+          f"launches {c['launches']} ({card})", flush=True)
+    emit(res)
+    return launches, slab_launches
 
 
 # --------------------------------------------------------------------------
@@ -2040,6 +2263,9 @@ def main():
         launches, backends, l1path, rate = phase_main(
             card, torch.device("cuda"), d, caldir)
         torch.cuda.empty_cache()
+        spatial_launches, spatial_slab_launches = phase_spatial(
+            card, torch.device("cuda"), d, caldir, l1path)
+        torch.cuda.empty_cache()
         noise_launches, noise_launches_likely = phase_noise(
             card, torch.device("cuda"), d, caldir)
         torch.cuda.empty_cache()
@@ -2075,7 +2301,11 @@ def main():
             noise_launches=noise_launches[name],
             noise_launches_likely_stream=noise_launches_likely[name],
             # launches in the focal-plane phase's timed 18-lane call
-            fpa_launches=fpa_launches[name]))
+            fpa_launches=fpa_launches[name],
+            # launches in the row-sharded classic core on two entries, and
+            # in its likelihood fit under pallas and pallas-stream
+            spatial_launches=spatial_launches[name],
+            spatial_slab_launches=spatial_slab_launches[name]))
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -87,6 +87,17 @@
 // of the output frame; a few extra CTAs at the head of the SAME launch
 // copy the nb-wide border through (1.5 MB at 6 x 4096^2), with 16 loads
 // a thread in flight, beside the one wave of segments.
+//
+// Row slabs (the row-sharded calibration), in either order: the frame
+// forms take a slab of the frame's rows.  The row count (Slab::nr) is a
+// parameter of its own beside the column count (Slab::na), and the rows
+// read above and below the rows written (ext_lo, ext_hi) are too: the
+// slab's halo rows, read through `in` with their real weights, or
+// (Neumann order) the frame's border rows where the slab holds the
+// frame's top or bottom edge.  The border copy covers the slab's own
+// rows: whole rows for the frame border rows the slab holds (top, bot),
+// nb columns on each side of the rest.  The whole frame is the slab
+// with nr = na, ext_lo = ext_hi = ext and top = bot = nb.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -111,15 +122,23 @@ struct Slab {
     const float* gain;  // active row 0, col 0; null: no gain
     int g_pitch;
     int ngrp;
-    int na;
-    int ext;            // rows and columns read around the active region
+    int na;             // columns (and, in the square forms, rows)
+    int nr;             // rows written
+    int ext;            // columns read around the active region
+    int ext_lo;         // rows read above the first row written
+    int ext_hi;         // rows read below the last row written
 };
 
 struct Border {
-    const float* in;    // (G, nside, nside) contiguous frames; null: none
+    const float* in;    // (G, rows, nside) frames of row pitch nside; null: none
     float* out;
-    int nside;
-    int nb;
+    long long in_gs;    // elements between groups
+    long long out_gs;
+    int rows;           // rows of each frame
+    int nside;          // columns of each frame
+    int nb;             // border columns on each side
+    int top;            // leading rows that are border rows (nb in a square frame)
+    int bot;            // trailing rows that are border rows
 };
 
 constexpr int LANES = 32;
@@ -169,53 +188,68 @@ __device__ __forceinline__ void cp_async_wait()
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// frame offset of border pixel i: the nb full rows at the top, those
-// at the bottom, then nb columns left and right of each row between
-__device__ __forceinline__ long long border_offset(const Border& q, long long i)
+// border pixels of one frame: the top full rows, the bottom full rows,
+// then nb columns left and right of each row between
+__device__ __forceinline__ long long border_per_frame(const Border& q)
+{
+    return (long long)(q.top + q.bot) * q.nside
+        + 2LL * q.nb * (q.rows - q.top - q.bot);
+}
+
+// group, row and column of border pixel i (in the order of
+// border_per_frame), as the offsets of that pixel in the input and the
+// output frames
+__device__ __forceinline__ void border_offset(const Border& q, long long per,
+                                              long long i, long long* oi, long long* oo)
 {
     const int nside = q.nside, nb = q.nb;
-    const int rows = nb * nside;
-    const int per = 2 * rows + 2 * nb * (nside - 2 * nb);
+    const int top = q.top * nside, bot = q.bot * nside;
     const long long g = i / per;
     int j = (int)(i - g * per), r, c;
-    if (j < rows) {
+    if (j < top) {
         r = j / nside;
         c = j - r * nside;
-    } else if (j < 2 * rows) {
-        j -= rows;
-        r = nside - nb + j / nside;
+    } else if (j < top + bot) {
+        j -= top;
+        r = q.rows - q.bot + j / nside;
         c = j % nside;
     } else {
-        j -= 2 * rows;
-        r = nb + j / (2 * nb);
+        j -= top + bot;
+        r = q.top + j / (2 * nb);
         const int k = j % (2 * nb);
         c = k < nb ? k : nside - 2 * nb + k;
     }
-    return (g * nside + r) * nside + c;
+    const long long rc = (long long)r * nside + c;
+    *oi = g * q.in_gs + rc;
+    *oo = g * q.out_gs + rc;
 }
 
 // copies the border of every frame: BATCH independent loads a thread in
 // flight, then their stores
 __device__ void copy_border(const Border& q, int ngrp, int block, int nblocks)
 {
-    const long long per = 2LL * q.nb * q.nside + 2LL * q.nb * (q.nside - 2 * q.nb);
+    const long long per = border_per_frame(q);
     const long long total = per * ngrp;
     const long long stride = (long long)nblocks * NT;
     for (long long i0 = (long long)block * NT + threadIdx.x; i0 < total;
          i0 += BATCH * stride) {
-        long long off[BATCH];
+        long long oi[BATCH], oo[BATCH];
         float v[BATCH];
 #pragma unroll
         for (int u = 0; u < BATCH; ++u) {
             const long long i = i0 + u * stride;
-            off[u] = i < total ? border_offset(q, i) : -1;
+            if (i < total) {
+                border_offset(q, per, i, &oi[u], &oo[u]);
+            } else {
+                oi[u] = oo[u] = -1;
+            }
         }
 #pragma unroll
         for (int u = 0; u < BATCH; ++u)
-            v[u] = off[u] >= 0 ? __ldg(q.in + off[u]) : 0.f;
+            v[u] = oi[u] >= 0 ? __ldg(q.in + oi[u]) : 0.f;
 #pragma unroll
         for (int u = 0; u < BATCH; ++u)
-            if (off[u] >= 0) q.out[off[u]] = v[u];
+            if (oo[u] >= 0) q.out[oo[u]] = v[u];
     }
 }
 
@@ -285,7 +319,7 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
     const int g0 = ch * GC;
     const int ng = min(GC, p.ngrp - g0);
     const int rs = sg * seg;
-    const int re = min(rs + seg, na);
+    const int re = min(rs + seg, p.nr);
 
     // column offsets of the lane's two copies (0 where nothing is read),
     // and the bytes of its 8-byte copy (with vec, in1 implies in0)
@@ -313,9 +347,9 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
         }
     };
     // issue the copies of row r into slot i: +0 outside the rows read,
-    // [-ext, na + ext), and outside the walk's rows [rs - 2, re + 1]
+    // [-ext_lo, nr + ext_hi), and outside the walk's rows [rs - 2, re + 1]
     auto issue = [&](int r, int i) {
-        const bool in = r >= -ext && r < na + ext && r >= rs - 2;
+        const bool in = r >= -p.ext_lo && r < p.nr + p.ext_hi && r >= rs - 2;
         const long long rr = in ? r : 0;
         float* dst = ring + i * ((10 + GC) * WIDTH);
 #pragma unroll
@@ -384,7 +418,7 @@ ipc_slab_kernel(Slab p, Border q, int ctas_x, int nseg, int seg,
         }
 
         // the finished a-row s + 1 is +0 outside the rows and columns read
-        const bool arow = s + 1 >= -ext && s + 1 < na + ext;
+        const bool arow = s + 1 >= -p.ext_lo && s + 1 < p.nr + p.ext_hi;
         const bool a0 = arow && in0, a1 = arow && in1;
         const bool store = s + 2 < re;
         orow -= p.out_pitch;
@@ -554,36 +588,53 @@ extern "C" int ipc_slab_resident(int chunk, int order, int* ctas)
 }
 
 // One launch: segments of `seg` rows, chunks of `chunk` groups (the plan
-// of ops/ipc_slab.py), sums in `order` (0: slab, 1: Neumann).  With
-// frame_in / frame_out given (the frame forms), `in` and `out` point at
-// the active region inside those (ngrp, nside, nside) frames and
-// `border_ctas` extra CTAs at the head of the grid copy the
-// nborder-wide border from frame_in to frame_out while the others walk
-// their segments; the Neumann order then reads min(nborder, EXT) rows
-// and columns of the border around the active region of every input.
+// of ops/ipc_slab.py), sums in `order` (0: slab, 1: Neumann).  `in` /
+// `out` are the (ngrp, nrows, na) active views of the rows written.
+// Without frame_in / frame_out (a cube) nothing else is read or written.
+// With them (a frame, or a row slab of one), `in` and `out` lie inside
+// those (ngrp, frame_rows, nside) rows (group strides frame_in_gs /
+// frame_out_gs, row pitch nside): the walk reads ext_lo rows above and
+// ext_hi rows below the rows written through `in`, the planes and the
+// gain (a slab's halo rows, or in the Neumann order the frame's border
+// rows), and, in the Neumann order, min(nborder, EXT) border columns on
+// each side; `border_ctas` extra CTAs at the head of the grid copy the
+// border from frame_in to frame_out while the others walk their
+// segments: the first `top` and last `bot` rows whole (the frame's
+// border rows held) and nborder columns on each side of the rows
+// between.  A whole frame is nrows = na, ext_lo = ext_hi = min(nborder,
+// EXT) in the Neumann order (0 in the slab order), top = bot = nborder.
 extern "C" int ipc_slab_launch(
     const float* in, long long in_gs, int in_pitch,
     float* out, long long out_gs, int out_pitch,
     const float* k, long long k_ps, int k_pitch,
-    const float* gain, int g_pitch, int ngrp, int na,
-    const float* frame_in, float* frame_out, int nside, int nborder,
+    const float* gain, int g_pitch, int ngrp, int na, int nrows,
+    int ext_lo, int ext_hi,
+    const float* frame_in, long long frame_in_gs, float* frame_out,
+    long long frame_out_gs, int frame_rows, int nside, int nborder, int top, int bot,
     int border_ctas, int seg, int chunk, int order, void* stream)
 {
-    if (ngrp < 1 || na < 1 || seg < 1 || chunk < 1 || chunk > MAX_CHUNK ||
-        border_ctas < 0 || nborder < 0)
+    if (ngrp < 1 || na < 1 || nrows < 1 || seg < 1 || chunk < 1 || chunk > MAX_CHUNK ||
+        border_ctas < 0 || nborder < 0 || ext_lo < 0 || ext_lo > EXT || ext_hi < 0 ||
+        ext_hi > EXT || !frame_in != !frame_out ||
+        (frame_in && (top < 0 || bot < 0 || top + bot + nrows != frame_rows)) ||
+        (!frame_in && (ext_lo || ext_hi || nborder)))
         return (int)cudaErrorInvalidValue;
     Slab p;
     p.in = in; p.in_gs = in_gs; p.in_pitch = in_pitch;
     p.out = out; p.out_gs = out_gs; p.out_pitch = out_pitch;
     p.k = k; p.k_ps = k_ps; p.k_pitch = k_pitch;
     p.gain = gain; p.g_pitch = g_pitch;
-    p.ngrp = ngrp; p.na = na;
-    p.ext = order == 1 && frame_in ? (nborder < EXT ? nborder : EXT) : 0;
+    p.ngrp = ngrp; p.na = na; p.nr = nrows;
+    p.ext = order == 1 ? (nborder < EXT ? nborder : EXT) : 0;
+    p.ext_lo = ext_lo; p.ext_hi = ext_hi;
     Border q;
-    q.in = frame_in; q.out = frame_out; q.nside = nside; q.nb = nborder;
+    q.in = frame_in; q.out = frame_out;
+    q.in_gs = frame_in_gs; q.out_gs = frame_out_gs;
+    q.rows = frame_rows; q.nside = nside; q.nb = nborder;
+    q.top = top; q.bot = bot;
     const int strips = (na + STRIP - 1) / STRIP;
     const int ctas_x = (strips + WARPS - 1) / WARPS;
-    const int nseg = (na + seg - 1) / seg;
+    const int nseg = (nrows + seg - 1) / seg;
     const int nch = (ngrp + chunk - 1) / chunk;
     if (!frame_in || nborder <= 0) border_ctas = 0;
     // 8-byte copies and stores of column pairs: every array 8-byte

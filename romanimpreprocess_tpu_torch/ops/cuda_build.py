@@ -98,7 +98,8 @@ def _declare(lib):
         ("pink_frames_launch", (P,) * 11 + (I, I, I, P)),
         ("pink_frames_wgmma_launch", (P,) * 10 + (I, I, I, P)),
         ("ipc_slab_launch",
-         (P, L, I, P, L, I, P, L, I, P, I, I, I, P, P, I, I, I, I, I, I, P)),
+         (P, L, I, P, L, I, P, L, I, P, I, I, I, I, I, I, P, L, P, L, I, I, I, I, I,
+          I, I, I, I, P)),
         ("ipc_slab_resident", (I, I, P)),
     ):
         if hasattr(lib, name):

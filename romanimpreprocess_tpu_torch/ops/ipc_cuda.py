@@ -20,6 +20,17 @@ launch.
 
 Bound: bytes, about 1.48 GB at 4096^2 x 6 groups (:func:`bytes_moved`).
 
+:func:`ipc_rev2_frame` is :func:`ipc_rev2_rows` on the whole frame:
+the same inverse on a row slab of the frame (the row-sharded
+calibration of :mod:`..parallel.spatial`), the slab's rows with a halo
+of other slabs' rows above and below, the output its own rows only.
+The launch takes the slab's row count: the halo rows are read as
+sources with their real weights, the frame's border rows only where the
+slab holds the frame's top or bottom edge.  Its plain twin
+:func:`ipc_rev2_rows_plain` is :func:`.ipc.ipc_rev` on the whole slab,
+trimmed to its own rows; both agree bit for bit with the frame inverse
+on those rows (``ipc_slab.NEUMANN_EXT`` rows of halo suffice).
+
 :func:`ipc_fwd_cube` replaces the TPU kernel ``ops/ipc_pallas.py``
 ``ipc_fwd_cube_blocked``: one forward application of K to every group
 of an active-region cube, the sim's IL forward model.  The kernel
@@ -34,6 +45,7 @@ import numpy as np
 import torch
 
 from ..utils import hostcache
+from ..utils.rows import Rows
 from . import cuda_build, ipc, ipc_slab
 
 #: launches of the frame inverse since the last reset (set it to 0 to
@@ -74,43 +86,82 @@ def bytes_moved(ngrp, nside):
     return 4 * nside * nside * (2 * ngrp + 9 + 1)
 
 
+def ipc_rev2_rows_plain(data, planes, gain, nborder=4, row0=0, lo=0, hi=0):
+    """Plain PyTorch version of :func:`ipc_rev2_rows`: :func:`.ipc.ipc_rev`
+    on the whole slab (zero fill beyond it), the planes viewed as the
+    (3, 3, h, nside) kernel, the frame's border passed through, trimmed
+    to the slab's own rows."""
+    h, nside = data.shape[-2:]
+    r = Rows(row0, h, lo, hi).checked(nside, nborder)
+    res = ipc.ipc_rev(data, planes.view(3, 3, h, nside), order=2, gain=gain)
+    mask = torch.zeros((h, nside), dtype=torch.bool, device=data.device)
+    mask[r.own_active(nside, nborder), nborder : nside - nborder] = True
+    return torch.where(mask, res, data)[:, r.own]
+
+
+def ipc_rev2_rows(data, planes, gain, nborder=4, row0=0, lo=0, hi=0):
+    """Order-2 IPC inverse of a row slab of the raw frame cube.
+
+    ``data`` is the (ngrp, h, nside) float32 slab whose first row is the
+    frame's row ``row0``, of which the first ``lo`` and the last ``hi``
+    rows are halo (other slabs' rows, at least ``ipc_slab.NEUMANN_EXT``
+    of them where the slab has a neighbour); ``planes`` the same rows of
+    :func:`kernel_planes_frame`'s (9, nside, nside) planes, ``gain`` of
+    the (nside, nside) gain.  Returns the (ngrp, h - lo - hi, nside)
+    own rows: the inverse on the frame's active pixels, the rest passed
+    through.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (no launch when the slab holds no active row).
+    """
+    if data.device.type == "cpu":
+        return ipc_rev2_rows_plain(data, planes, gain, nborder, row0, lo, hi)
+    global launches
+    ngrp, h, nside = data.shape
+    req = cuda_build.require
+    req(data, "data", torch.float32, (ngrp, h, nside))
+    req(planes, "planes", torch.float32, (9, h, nside))
+    req(gain, "gain", torch.float32, (h, nside))
+    r = Rows(row0, h, lo, hi).checked(nside, nborder)
+    own, act = r.own, r.own_active(nside, nborder)
+    out = torch.empty((ngrp, own.stop - own.start, nside), dtype=data.dtype,
+                      device=data.device)
+    if act.stop == act.start:
+        out.copy_(data[:, own])
+        return out
+    cols = slice(nborder, nside - nborder)
+    ext = ipc_slab.NEUMANN_EXT
+    oact = slice(act.start - lo, act.stop - lo)
+    ipc_slab.launch(
+        data[:, act, cols], out[:, oact, cols], planes[:, act, cols], gain[act, cols],
+        data[:, own], out, nborder, min(act.start, ext), min(h - act.stop, ext),
+        oact.start, out.shape[1] - oact.stop, order=ipc_slab.NEUMANN)
+    launches += 1
+    return out
+
+
 def ipc_rev2_frame_plain(data, planes, gain, nborder=4):
     """Plain PyTorch version of :func:`ipc_rev2_frame` (same inputs/outputs):
     :func:`.ipc.ipc_rev` on the whole frame, the planes viewed as the
     (3, 3, nside, nside) kernel, border passed through."""
-    nb = nborder
-    nside = data.shape[-1]
-    res = ipc.ipc_rev(data, planes.view(3, 3, nside, nside), order=2, gain=gain)
-    act = torch.zeros((nside, nside), dtype=torch.bool, device=data.device)
-    act[nb : nside - nb, nb : nside - nb] = True
-    return torch.where(act, res, data)
+    return ipc_rev2_rows_plain(data, planes, gain, nborder)
 
 
 def ipc_rev2_frame(data, planes, gain, nborder=4):
     """Order-2 IPC inverse on the raw (ngrp, nside, nside) float32 cube,
-    border passthrough.  ``planes`` is the (9, nside, nside) output of
+    border passthrough: :func:`ipc_rev2_rows` on the whole frame.
+    ``planes`` is the (9, nside, nside) output of
     :func:`kernel_planes_frame`; ``gain`` is (nside, nside).  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel:
     the slab kernel in the Neumann order on the active views of the
     frame, its planes and its gain, the border copied by the same
     launch.
     """
-    if data.device.type == "cpu":
-        return ipc_rev2_frame_plain(data, planes, gain, nborder)
-    global launches
-    ngrp, nside, _ = data.shape
-    req = cuda_build.require
-    req(data, "data", torch.float32, (ngrp, nside, nside))
-    req(planes, "planes", torch.float32, (9, nside, nside))
-    req(gain, "gain", torch.float32, (nside, nside))
-    if nborder < 0 or 2 * nborder >= nside:
-        raise ValueError(f"nborder {nborder} leaves no active region in nside {nside}")
-    out = torch.empty_like(data)
-    act = slice(nborder, nside - nborder)
-    ipc_slab.launch(data[:, act, act], out[:, act, act], planes[:, act, act],
-                    gain[act, act], data, out, nborder, order=ipc_slab.NEUMANN)
-    launches += 1
-    return out
+    return ipc_rev2_rows(data, planes, gain, nborder)
+
+
+def rows_bytes_moved(ngrp, h, nside, lo=0, hi=0):
+    """Least bytes :func:`ipc_rev2_rows` must move: the slab, its planes
+    and gain read once, its own rows written once."""
+    return 4 * nside * (ngrp * (2 * h - lo - hi) + 10 * h)
 
 
 def fwd_bytes_moved(ngrp, na, has_gain=False):

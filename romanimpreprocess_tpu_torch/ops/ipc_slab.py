@@ -31,6 +31,12 @@ layout itself (science at ``[th:th+na, 2:2+na]``) is the TPU kernels'
 block geometry; here it is only a layout the entry points accept, for
 parity with the reference's contract.
 
+The frame forms take a row slab of the frame as well (``row0``, ``lo``,
+``hi``; the row-sharded calibration of :mod:`..parallel.spatial`): the
+same launch with the slab's row count, its halo rows read as sources;
+the whole frame is the slab ``row0 = lo = hi = 0``
+(:class:`..utils.rows.Rows`).
+
 Plain twin: :func:`ipc_rev2_plain`.  A CPU tensor takes the twin; a CUDA
 tensor launches the kernel, with which the twin agrees bit for bit.
 Bound: bytes (:func:`bytes_moved`), 1.47 GB at 6 groups of 4088^2.
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from ..utils import hostcache
+from ..utils.rows import Rows
 from . import cuda_build
 from .ipc import shift_zero
 
@@ -91,22 +98,23 @@ Plan = collections.namedtuple(
     "Plan", ("strip", "seg", "nseg", "chunk", "nchunks", "ctas_x", "grid"))
 
 
-def plan(na, ngrp, resident=RESIDENT_H100):
-    """The kernel's partition of a (ngrp, na, na) cube, given the CTAs
-    the card holds at once (``resident``).  Groups split into the fewest
-    chunks of at most :data:`GROUP_CHUNK`, as even as they go; segments
-    are as long as one wave of resident CTAs allows (each reads 4
-    warm-up rows, 2 above and 2 below what it writes), and no shorter
-    than :data:`MIN_SEG` rows."""
-    if na < 1 or ngrp < 1:
-        raise ValueError(f"plan: na {na} and ngrp {ngrp} must be positive")
+def plan(na, ngrp, resident=RESIDENT_H100, nrows=None):
+    """The kernel's partition of a (ngrp, na, na) cube, or of ``nrows``
+    rows of ``na`` columns, given the CTAs the card holds at once
+    (``resident``).  Groups split into the fewest chunks of at most
+    :data:`GROUP_CHUNK`, as even as they go; segments are as long as one
+    wave of resident CTAs allows (each reads 4 warm-up rows, 2 above and
+    2 below what it writes), and no shorter than :data:`MIN_SEG` rows."""
+    nr = na if nrows is None else nrows
+    if na < 1 or nr < 1 or ngrp < 1:
+        raise ValueError(f"plan: na {na}, nrows {nr} and ngrp {ngrp} must be positive")
     nchunks = -(-ngrp // GROUP_CHUNK)
     chunk = -(-ngrp // nchunks)
     strips = -(-na // STRIP)
     ctas_x = -(-strips // WARPS)
-    nseg = max(1, min(resident // (ctas_x * nchunks), na // MIN_SEG))
-    seg = -(-na // nseg)
-    nseg = -(-na // seg)
+    nseg = max(1, min(resident // (ctas_x * nchunks), nr // MIN_SEG))
+    seg = -(-nr // nseg)
+    nseg = -(-nr // seg)
     return Plan(STRIP, seg, nseg, chunk, nchunks, ctas_x, ctas_x * nseg * nchunks)
 
 
@@ -222,31 +230,17 @@ def ipc_rev2_plain(cube, planes, gain=None):
     return out
 
 
-def _check_gain(gain, na):
-    """An (na, na) float32 CUDA plane whose rows are contiguous (a view
+def _check_gain(gain, shape):
+    """A float32 CUDA plane of ``shape`` whose rows are contiguous (a view
     of the full-frame gain is read in place through its row pitch)."""
     if gain is None:
         return
     if gain.device.type != "cuda" or gain.dtype != torch.float32:
         raise ValueError(f"gain: expected a float32 CUDA tensor, got "
                          f"{gain.dtype} on {gain.device}")
-    if tuple(gain.shape) != (na, na) or gain.stride(-1) != 1:
-        raise ValueError(f"gain: expected shape {(na, na)} with contiguous "
+    if tuple(gain.shape) != tuple(shape) or gain.stride(-1) != 1:
+        raise ValueError(f"gain: expected shape {tuple(shape)} with contiguous "
                          f"rows, got {tuple(gain.shape)}, strides {gain.stride()}")
-
-
-def _slab_args(src, dst, planes, gain, ngrp, na):
-    """The kernels' common argument list: pointer, group / plane stride
-    and row pitch of the cube in, the cube out and the planes; pointer
-    and pitch of the gain."""
-    return (
-        src.data_ptr(), src.stride(0), src.stride(1),
-        dst.data_ptr(), dst.stride(0), dst.stride(1),
-        planes.data_ptr(), planes.stride(0), planes.stride(1),
-        None if gain is None else gain.data_ptr(),
-        0 if gain is None else gain.stride(0),
-        ngrp, na,
-    )
 
 
 def _require_inputs(cube, kernel, gain, na, th):
@@ -254,7 +248,7 @@ def _require_inputs(cube, kernel, gain, na, th):
     cuda_build.require(cube, "cube", torch.float32, (ngrp, na, na))
     cuda_build.require(kernel, "kernel", torch.float32, kernel.shape)
     planes = _planes_view(kernel, na, th)
-    _check_gain(gain, na)
+    _check_gain(gain, (na, na))
     return ngrp, planes
 
 
@@ -276,24 +270,34 @@ def _resident(lib, device, chunk, order=SLAB):
 
 
 def launch(src, dst, planes, gain, frame_in=None, frame_out=None, nborder=0,
-           order=SLAB):
-    """One launch of the kernel on the (ngrp, na, na) views ``src`` ->
-    ``dst``, summing in ``order``; with ``frame_in`` / ``frame_out`` the
-    extra CTAs copy their ``nborder``-wide border (and the Neumann order
-    reads up to :data:`NEUMANN_EXT` rows and columns of it around every
-    view)."""
-    ngrp, na = src.shape[0], src.shape[-1]
+           ext_lo=0, ext_hi=0, top=0, bot=0, order=SLAB):
+    """One launch of the kernel on the (ngrp, nrows, na) views ``src`` ->
+    ``dst`` (each row contiguous), summing in ``order``.  Without
+    ``frame_in`` / ``frame_out`` (a cube) nothing else is read.  With
+    them (the (ngrp, rows, nside) frame rows that the views lie in, each
+    row contiguous), the walk reads ``ext_lo`` rows above and ``ext_hi``
+    below the views (at most :data:`NEUMANN_EXT`) through ``src``,
+    ``planes`` and ``gain``, and, in the Neumann order, ``min(nborder,
+    NEUMANN_EXT)`` columns on each side; the extra CTAs copy the border
+    of ``frame_in`` into ``frame_out``: its first ``top`` and last
+    ``bot`` rows whole, ``nborder`` columns of each row between."""
+    ngrp, nr, na = src.shape
     lib = cuda_build.library("ipc_slab.cu")
     border = BORDER_CTAS if frame_in is not None and nborder > 0 else 0
     resident = _resident(lib, src.device, plan(na, ngrp).chunk, order)
-    p = plan(na, ngrp, max(1, resident - border))
+    p = plan(na, ngrp, max(1, resident - border), nrows=nr)
+    frame = frame_in is not None
     with torch.cuda.device(src.device):
         err = lib.ipc_slab_launch(
-            *_slab_args(src, dst, planes, gain, ngrp, na),
-            None if frame_in is None else frame_in.data_ptr(),
-            None if frame_out is None else frame_out.data_ptr(),
-            0 if frame_in is None else frame_in.shape[-1], nborder,
-            border, p.seg, p.chunk, order, cuda_build.stream_ptr(src),
+            src.data_ptr(), src.stride(0), src.stride(1),
+            dst.data_ptr(), dst.stride(0), dst.stride(1),
+            planes.data_ptr(), planes.stride(0), planes.stride(1),
+            None if gain is None else gain.data_ptr(),
+            0 if gain is None else gain.stride(0), ngrp, na, nr, ext_lo, ext_hi,
+            frame_in.data_ptr() if frame else None, frame_in.stride(0) if frame else 0,
+            frame_out.data_ptr() if frame else None, frame_out.stride(0) if frame else 0,
+            frame_in.shape[-2] if frame else 0, frame_in.shape[-1] if frame else 0,
+            nborder, top, bot, border, p.seg, p.chunk, order, cuda_build.stream_ptr(src),
         )
     cuda_build.check(err, "ipc_slab_launch")
 
@@ -339,69 +343,99 @@ def _nborder(data, kernel, nborder):
         return nborder
     if kernel.ndim == 3:
         raise ValueError("nborder is required with a pre-padded kernel")
-    return (data.shape[-2] - kernel.shape[-1]) // 2
+    return (data.shape[-1] - kernel.shape[-1]) // 2
 
 
-def correct_cube_plain(data, kernel, gain=None, nborder=None, th=8):
+def _frame_rows(data, kernel, nborder, row0, lo, hi):
+    """(nborder, :class:`Rows` of the slab ``data``, its rows that are
+    active rows of the frame (halo included), its own such rows)."""
+    nb = _nborder(data, kernel, nborder)
+    nside = data.shape[-1]
+    r = Rows(row0, data.shape[-2], lo, hi).checked(nside, nb)
+    return nb, r, r.active(nside, nb), r.own_active(nside, nb)
+
+
+def correct_cube_plain(data, kernel, gain=None, nborder=None, th=8, row0=0, lo=0, hi=0):
     """Plain PyTorch version of :func:`correct_cube_fused`: the twin on
-    the active slice, merged into a copy of the frame."""
-    nb = _nborder(data, kernel, nborder)
-    ny = data.shape[-2]
-    na = ny - 2 * nb
-    corr = ipc_rev2_plain(data[:, nb : ny - nb, nb : ny - nb],
-                          _planes_view(kernel, na, th), gain)
-    if nb == 0:
-        return corr
+    the active rows and columns (a slab's halo rows included, zero
+    beyond them), merged into a copy of the frame, trimmed to its own
+    rows."""
+    nb, r, ra, _ = _frame_rows(data, kernel, nborder, row0, lo, hi)
+    nside = data.shape[-1]
+    cols = slice(nb, nside - nb)
     out = data.clone()
-    out[:, nb : ny - nb, nb : ny - nb] = corr
-    return out
+    if ra.stop > ra.start:
+        g = r.active_span(nside, nb)
+        planes = _planes_view(kernel, nside - 2 * nb, th)[:, g]
+        out[:, ra, cols] = ipc_rev2_plain(data[:, ra, cols], planes, gain)
+    return out[:, r.own]
 
 
-def _correct_frame(data, kernel, gain, nborder, th):
-    """One launch on the frame in place: the active view read through
-    the frame's row pitch, the result in the output frame's active
-    region, the border copied by extra CTAs of the same launch."""
-    nb = _nborder(data, kernel, nborder)
-    ngrp, ny, _ = data.shape
-    na = ny - 2 * nb
-    if nb < 0 or na <= 0:
-        raise ValueError(f"nborder {nb} does not fit a frame of {ny}")
-    cuda_build.require(data, "data", torch.float32, (ngrp, ny, ny))
+def _correct_frame(data, kernel, gain, nborder, th, row0, lo, hi):
+    """One launch on the frame, or a row slab of it, in place: the
+    active view of its own rows read through the row pitch (the active
+    halo rows read as sources), the result in the output's active
+    region, the border of its own rows copied by extra CTAs of the same
+    launch; returns (own rows, launched)."""
+    nb, r, ra, act = _frame_rows(data, kernel, nborder, row0, lo, hi)
+    ngrp, h, nside = data.shape
+    cuda_build.require(data, "data", torch.float32, (ngrp, h, nside))
     cuda_build.require(kernel, "kernel", torch.float32, kernel.shape)
-    planes = _planes_view(kernel, na, th)
-    _check_gain(gain, na)
-    out = torch.empty_like(data)
-    act = (slice(None), slice(nb, ny - nb), slice(nb, ny - nb))
-    launch(data[act], out[act], planes, gain, data, out, nb)
-    return out
+    _check_gain(gain, (ra.stop - ra.start, nside - 2 * nb))
+    own = r.own
+    out = torch.empty((ngrp, own.stop - own.start, nside), dtype=data.dtype,
+                      device=data.device)
+    if act.stop == act.start:
+        out.copy_(data[:, own])
+        return out, False
+    cols = slice(nb, nside - nb)
+    g0 = row0 + act.start - nb
+    planes = _planes_view(kernel, nside - 2 * nb, th)[:, g0 : g0 + act.stop - act.start]
+    oact = slice(act.start - lo, act.stop - lo)
+    launch(data[:, act, cols], out[:, oact, cols], planes,
+           None if gain is None else gain[act.start - ra.start : act.stop - ra.start],
+           data[:, own], out, nb, min(act.start - ra.start, NEUMANN_EXT),
+           min(ra.stop - act.stop, NEUMANN_EXT), oact.start, out.shape[1] - oact.stop)
+    return out, True
 
 
-def correct_cube_fused(data, kernel, gain=None, nborder=None, th=8):
+def correct_cube_fused(data, kernel, gain=None, nborder=None, th=8, row0=0, lo=0, hi=0):
     """IPC-deconvolve the active region of a (ngrp, ny, ny) float32
     frame cube; the ``nborder``-wide border passes through unchanged.
-    ``kernel`` and ``gain`` cover the active region, as for
-    :func:`ipc_rev2_cube_blocked`.  Returns a new tensor.
+    ``kernel`` covers the active region, as for
+    :func:`ipc_rev2_cube_blocked`; ``gain`` (optional) the active
+    region.  Returns a new tensor.
+
+    A row slab of the frame (the row-sharded calibration): ``data`` the
+    (ngrp, h, ny) slab whose first row is the frame's row ``row0``, its
+    first ``lo`` and last ``hi`` rows halo (at least
+    :data:`NEUMANN_EXT` of them where it has a neighbour), ``gain`` the
+    active columns of the slab's active rows (halo included).  Returns
+    the (ngrp, h - lo - hi, ny) own rows.
 
     On a CUDA tensor this is one launch on the frame in place: the
     active view is read through the frame's row pitch, the result lands
     in the output frame's active region, and extra thread blocks of the
-    same launch copy the border."""
+    same launch copy the border (no launch when a slab holds no active
+    row)."""
     if data.device.type == "cpu":
-        return correct_cube_plain(data, kernel, gain, nborder, th)
+        return correct_cube_plain(data, kernel, gain, nborder, th, row0, lo, hi)
     global blocked_launches, fused_launches
-    out = _correct_frame(data, kernel, gain, nborder, th)
-    blocked_launches += 1
-    fused_launches += 1
+    out, launched = _correct_frame(data, kernel, gain, nborder, th, row0, lo, hi)
+    if launched:
+        blocked_launches += 1
+        fused_launches += 1
     return out
 
 
-def correct_cube_stream(data, kernel, gain=None, nborder=None, th=8):
+def correct_cube_stream(data, kernel, gain=None, nborder=None, th=8, row0=0, lo=0, hi=0):
     """:func:`correct_cube_fused` over the streaming entry point: the
     ``pallas-stream`` route's frame form, one launch counted as one of
     :func:`ipc_rev2_cube_stream`."""
     if data.device.type == "cpu":
-        return correct_cube_plain(data, kernel, gain, nborder, th)
+        return correct_cube_plain(data, kernel, gain, nborder, th, row0, lo, hi)
     global stream_launches
-    out = _correct_frame(data, kernel, gain, nborder, th)
-    stream_launches += 1
+    out, launched = _correct_frame(data, kernel, gain, nborder, th, row0, lo, hi)
+    if launched:
+        stream_launches += 1
     return out

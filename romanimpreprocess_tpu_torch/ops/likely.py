@@ -265,11 +265,11 @@ def gls_chisq(data, plan, m_eff, dvardt, sig2read):
     return torch.where(dof >= 1.0, chi2 / torch.clamp(dof, min=1.0), zero)
 
 
-def ramp_fit_likely(data, rdq, pdq, plan, gain, read_sigma, nborder=4):
+def ramp_fit_likely(data, rdq, pdq, plan, gain, read_sigma, nborder=4, interior=None):
     """Adaptive-weight ramp fit with jump rejection and diagnostics.
 
-    Same I/O contract as :func:`.ramp.ramp_fit` plus ``dumo`` and
-    ``chisq`` maps: returns (slope, err_read, err_poisson, rdq, pdq,
+    Same I/O contract as :func:`.ramp.ramp_fit` (``interior`` included)
+    plus ``dumo`` and ``chisq`` maps: returns (slope, err_read, err_poisson, rdq, pdq,
     dumo, chisq).
     """
     ngrp, ny, nx = data.shape
@@ -326,7 +326,9 @@ def ramp_fit_likely(data, rdq, pdq, plan, gain, read_sigma, nborder=4):
     dvardt = torch.clamp(slope / gain_c, min=0.0)
 
     # --- jump detection: pair significances with factored variances ---
-    flag_ok = eligible & interior_mask(ny, nx, nb, dev)
+    if interior is None:
+        interior = interior_mask(ny, nx, nb, dev)
+    flag_ok = eligible & interior
     thresh = plan.rejection_threshold
 
     # per weight row and pair: var(ds) = d^T C d - 2 d^T C K + K^T C K,

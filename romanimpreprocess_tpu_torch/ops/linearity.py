@@ -7,7 +7,8 @@ calibration model: raw signal S (DN_raw) maps to linearized signal
 
     z = -1 + 2 (S - Smin) / (Smax - Smin).
 
-:func:`apply_linearity_cube` is also the plain twin of the CUDA kernel
+:func:`apply_linearity` linearizes one frame; :func:`apply_linearity_cube`
+a resultant cube, and is also the plain twin of the CUDA kernel
 in :mod:`.linearity_cuda`.  DQ planes are int32 bit patterns
 (:func:`..dqflags.i32`).
 """
@@ -36,6 +37,18 @@ class LinearityData(NamedTuple):
 def rescale(S, lin):
     """S (DN_raw) -> z in the Legendre domain."""
     return -1.0 + 2.0 * (S - lin.smin) / (lin.smax - lin.smin)
+
+
+def apply_linearity(S, lin):
+    """Linearize a single 2-D frame.  Returns (Slin, dq).
+
+    Mirrors reference ``linearity`` (``ipc_linearity.py:234-273``):
+    evaluates the expansion with linear extrapolation and ORs
+    NO_LIN_CORR into the calibration dq where extrapolating.
+    """
+    phi, exflag = legendre_eval(rescale(S, lin), lin.coefs)
+    zero = torch.zeros((), dtype=torch.int32, device=S.device)
+    return phi, lin.dq | torch.where(exflag, NO_LIN_CORR, zero)
 
 
 def apply_linearity_cube(S, lin, do_not_flag_first=True, attempt_corr=None):

@@ -275,7 +275,7 @@ def propagate_pdq(rdq_out, pdq, start):
     return pdq | torch.where(not_ref, pdq2, zero)
 
 
-def ramp_fit(data, rdq, pdq, plan, gain, read_sigma, nborder=4):
+def ramp_fit(data, rdq, pdq, plan, gain, read_sigma, nborder=4, interior=None):
     """Fit slopes, detect jumps, and propagate flags.
 
     Parameters
@@ -287,6 +287,9 @@ def ramp_fit(data, rdq, pdq, plan, gain, read_sigma, nborder=4):
     gain : (ny, nx) e/DN.
     read_sigma : (ny, nx) single-read noise std, DN.
     nborder : border width excluded from jump flagging.
+    interior : optional (ny, nx) boolean mask of the pixels that may be
+        jump-flagged, in place of the frame's interior by ``nborder``
+        (a row slab of a frame passes the frame's interior at its rows).
 
     Returns slope, slope_err_read, slope_err_poisson ((ny, nx) float32,
     DN/s), rdq with JUMP_DET bits, and pdq with the propagated flags.
@@ -335,7 +338,9 @@ def ramp_fit(data, rdq, pdq, plan, gain, read_sigma, nborder=4):
     sthresh = plan.sthresh_a + (plan.sthresh_b - plan.sthresh_a) * x
 
     # --- per-pair significance + flagging ---
-    flag_ok = eligible & interior_mask(ny, nx, nborder, dev)
+    if interior is None:
+        interior = interior_mask(ny, nx, nborder, dev)
+    flag_ok = eligible & interior
     A_t, B_t = table(plan.A), table(plan.B)
     act_t = torch.as_tensor(plan.pair_active, device=dev)
     group_hits = [None] * ngrp

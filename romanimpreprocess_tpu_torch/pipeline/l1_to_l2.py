@@ -16,6 +16,10 @@ host wrapper: YAML config, L1 ASDF read, CALDIR load (once), WCS
 sidecar -> pixel-area map, plan precomputation, staging onto the
 device, L2 ASDF/FITS write, process log.
 
+The device core's stages (:func:`calibrate_rows`) take row slabs of the
+frame with their halos; :func:`make_core` runs them on the whole frame,
+:mod:`..parallel.spatial` on the slabs of a row-sharded frame.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`..config.resolve_device`).  The ``IPC_BACKEND``,
 ``LIN_BACKEND`` and ``SKY_BACKEND`` keys choose between the
@@ -48,39 +52,13 @@ from ..ops import (ipc, ipc_cuda, ipc_slab, likely, linearity,
 from ..ops.sky import full_fp32
 from ..utils import hostcache, typefix
 from ..utils.processlog import ProcessLog
+from ..utils.rows import Rows
 from . import oututils
 
 
 # --------------------------------------------------------------------------
 # Device core
 # --------------------------------------------------------------------------
-
-def _refpix_correct(data, dark_cube, amp33, amp33_med, opt_slope,
-                    nside, nborder, channelwidth, use_amp33):
-    """Per-group reference-pixel correction (reference
-    ``gen_cal_image.py:531-556``): dark-subtracted frame (+ amp33
-    reference block), row subtraction with the optimal amp33 slope,
-    then channel subtraction; dark re-added afterwards.  All groups at
-    once (the :mod:`..ops.refsub` helpers take a leading group axis).
-    """
-    nb = nborder
-    ngrp = data.shape[0]
-    work = data - dark_cube
-    # ---- row stage (reference_subtraction.py:77-125) ----
-    if use_amp33:
-        blk = amp33 - amp33_med
-        blk = blk - refsub.median(blk.reshape(ngrp, -1), dim=-1)[:, None, None]
-        ref_med = refsub.median(blk, dim=-1)  # (ngrp, nside)
-        ctr = refsub.median(ref_med, dim=-1)[:, None]
-        work = work - (opt_slope * (ref_med - ctr))[..., None]
-    else:
-        work = refsub.ref_subtraction_row(work, nside=nside, nborder=nb)
-    # ---- channel stage (reference_subtraction.py:16-74) ----
-    work = refsub.ref_subtraction_channel(
-        work, nside=nside, nborder=nb, channelwidth=channelwidth
-    )
-    return work + dark_cube
-
 
 def _dark_decay_signal(read_pattern, frame_time, amplitude, time_constant):
     """Per-resultant additive decay signal s_j = A * mean_r exp(-t_r/tau)
@@ -123,34 +101,6 @@ def _wfi18_row_basis(nside, taus=WFI18_DEFAULT_TAUS):
     return basis.astype(np.float32)
 
 
-def _correct_wfi18(data, basis, nside, nborder):
-    """Fit & subtract the exponential row profile from the first read.
-
-    Row medians of (read0 - read1) isolate the transient; least squares
-    on the fixed-tau ``basis`` gives the amplitudes; the fitted profile
-    is removed from read 0.  Returns a new cube.
-    """
-    nb = nborder
-    prof = refsub.median(
-        data[0, :, nb : nside - nb] - data[1, :, nb : nside - nb], dim=-1
-    )
-    prof = prof - refsub.median(prof)
-    with full_fp32():
-        BtB = basis.T @ basis
-        coef = torch.linalg.solve(BtB, basis.T @ prof)
-        model = basis @ coef
-    out = data.clone()
-    out[0] -= model[:, None]
-    return out
-
-
-def _add_active(x, y, nb):
-    """A copy of the 2-D ``x`` with ``y`` added on its active region."""
-    out = x.clone()
-    out[nb : x.shape[-2] - nb, nb : x.shape[-1] - nb] += y
-    return out
-
-
 class StageRanges:
     """Labels a device function's stages as ``<prefix>.<stage>`` ranges
     for ``torch.profiler`` (a few microseconds each when no profiler
@@ -171,211 +121,398 @@ class StageRanges:
             self._open = None
 
 
+def _add_active(x, y, act):
+    """A copy of the 2-D ``x`` with ``y`` added on ``x[act]``."""
+    out = x.clone()
+    out[act] += y
+    return out
+
+
+#: bytes the row-sharded core has concatenated across slabs (its
+#: gathers for the cross-row reductions) since the last reset
+gathered_bytes = 0
+
+
+def _gather(pieces, lead, dim=-2):
+    """The pieces, in row order, as one tensor on ``lead`` (one piece is
+    returned as it is)."""
+    global gathered_bytes
+    if len(pieces) == 1:
+        return pieces[0]
+    gathered_bytes += sum(p.numel() * p.element_size() for p in pieces)
+    return torch.cat([p.to(lead) for p in pieces], dim=dim)
+
+
+class _Slab:
+    """One slab's state through the stages: its staged arrays ``arr``
+    (for the rows ``at``), the rows its state tensors hold now
+    (``rows``: ``at`` until the halo is trimmed), and the state."""
+
+    def __init__(self, arr, rows, nside, nb):
+        self.arr, self.at, self.rows = arr, rows, rows
+        self.nside, self.nb = nside, nb
+        self.data = arr["data"]
+        self.dev = self.data.device
+        self.cols = slice(nb, nside - nb)
+
+    @property
+    def act(self):
+        """(rows, columns) of the state tensors on the frame's active region."""
+        return self.rows.active(self.nside, self.nb), self.cols
+
+    def full(self, k):
+        """The full-height array ``k`` at the state's rows."""
+        v = self.arr[k]
+        if self.rows == self.at:
+            return v
+        d = self.rows.y0 - self.at.y0
+        return v[..., d : d + self.rows.n, :]
+
+    def active(self, k):
+        """The active-height array ``k`` at the state's active rows."""
+        v = self.arr[k]
+        if self.rows == self.at:
+            return v
+        now = self.rows.active_span(self.nside, self.nb)
+        d = self.at.active_span(self.nside, self.nb).start
+        return v[..., now.start - d : now.stop - d, :]
+
+    def own_rows(self, t, dim=-2):
+        """The own rows of a state tensor whose rows are axis ``dim``
+        (-2: a frame or cube, -1: a vector per row)."""
+        own = self.rows.own
+        if self.rows.lo == self.rows.hi == 0:
+            return t
+        return t[..., own, :] if dim == -2 else t[..., own]
+
+    def trim(self, data_trimmed=False):
+        """Drop the halo rows from the state."""
+        if not data_trimmed:
+            self.data = self.own_rows(self.data)
+        self.rdq = self.own_rows(self.rdq)
+        self.pdq = self.own_rows(self.pdq)
+        self.rows = self.rows.trimmed()
+
+    def interior(self):
+        """The frame's interior (by nborder) at the state's rows."""
+        m = torch.zeros((self.rows.n, self.nside), dtype=torch.bool, device=self.dev)
+        m[self.act] = True
+        return m
+
+
+def _take_rows(slabs, tensors, a, b, lead):
+    """Frame rows ``[a, b)`` of per-slab state tensors (..., rows, nx),
+    from the slabs' own rows, as one tensor on ``lead``."""
+    pieces = []
+    for s, t in zip(slabs, tensors):
+        own = s.rows.trimmed()
+        i0, i1 = max(a, own.y0), min(b, own.y0 + own.n)
+        if i1 > i0:
+            pieces.append(t[..., i0 - s.rows.y0 : i1 - s.rows.y0, :])
+    return _gather(pieces, lead)
+
+
+def _saturation(s, cfg, ab):
+    """dq initialization (romancal do_dqinit analog) and saturation."""
+    s.pdq = s.full("mask_dq")
+    s.rdq = torch.zeros(s.data.shape, dtype=torch.int32, device=s.dev)
+    if cfg["exclude_first"]:
+        s.rdq[0] |= i32(gdq.DO_NOT_USE)
+    if "saturation" not in ab:
+        s.rdq, s.pdq = saturation.flag_saturation(
+            s.data, s.rdq, s.pdq, s.full("saturation"), s.full("saturation_dq"),
+            backup=cfg["backup"], skip_first=1, n_pix_grow_sat=1,
+        )
+
+
+def _refpix(slabs, cfg, geom, lead):
+    """Per-group reference-pixel correction (reference
+    ``gen_cal_image.py:531-556``): dark-subtracted frame (+ amp33
+    reference block), row subtraction with the optimal amp33 slope,
+    then channel subtraction; dark re-added afterwards.  All groups at
+    once.  The medians of each row are the slab's; what spans the rows
+    (the row fit, the amp33 block's median, the channel lines from the
+    frame's edge rows) is computed on ``lead`` from the gathered rows.
+    """
+    nside, nb, channelwidth = geom
+    work = [s.data - s.full("dark_cube") for s in slabs]
+    # ---- row stage (reference_subtraction.py:77-125) ----
+    if cfg["use_amp33"]:
+        amp33 = _gather([s.own_rows(s.full("amp33")) for s in slabs], lead)
+        amp33_med = _gather([s.own_rows(s.full("amp33_med")) for s in slabs], lead)
+        ngrp = amp33.shape[0]
+        blk = amp33 - amp33_med
+        blk = blk - refsub.median(blk.reshape(ngrp, -1), dim=-1)[:, None, None]
+        ref_med = refsub.median(blk, dim=-1)  # (ngrp, nside)
+        ctr = refsub.median(ref_med, dim=-1)[:, None]
+        for i, s in enumerate(slabs):
+            rm = ref_med[:, s.rows.y0 : s.rows.y0 + s.rows.n].to(s.dev)
+            work[i] = work[i] - (s.arr["opt_slope"] * (rm - ctr.to(s.dev)))[..., None]
+    else:
+        meds = [refsub.row_medians(w, nside, nb) for w in work]
+        m, ctr = refsub.row_coefs(
+            _gather([s.own_rows(sm, -1) for s, (sm, _) in zip(slabs, meds)], lead, -1),
+            _gather([s.own_rows(rm, -1) for s, (_, rm) in zip(slabs, meds)], lead, -1))
+        for i, s in enumerate(slabs):
+            work[i] = refsub.row_apply(work[i], meds[i][1], m.to(s.dev), ctr.to(s.dev))
+    # ---- channel stage (reference_subtraction.py:16-74) ----
+    m, c = refsub.channel_line(_take_rows(slabs, work, 0, nb, lead),
+                               _take_rows(slabs, work, nside - nb, nside, lead),
+                               nside, nside, nb, channelwidth)
+    for w, s in zip(work, slabs):
+        s.data = refsub.channel_apply(w, m.to(s.dev), c.to(s.dev), channelwidth,
+                                      row0=s.rows.y0) + s.full("dark_cube")
+
+
+def _wfi18(slabs, geom, lead):
+    """Fit & subtract the exponential row profile from the first read.
+
+    Row medians of (read0 - read1) isolate the transient (each slab's
+    own rows); least squares on the fixed-tau basis gives the
+    amplitudes (on ``lead``, over every row); the fitted profile is
+    removed from read 0.
+    """
+    nside, nb, _ = geom
+    cols = slice(nb, nside - nb)
+    prof = _gather([refsub.median(s.data[0, s.rows.own, cols] - s.data[1, s.rows.own, cols],
+                                  dim=-1) for s in slabs], lead, -1)
+    basis = _gather([s.own_rows(s.full("wfi18_basis")) for s in slabs], lead)
+    prof = prof - refsub.median(prof)
+    with full_fp32():
+        BtB = basis.T @ basis
+        coef = torch.linalg.solve(BtB, basis.T @ prof)
+        model = basis @ coef
+    for s in slabs:
+        out = s.data.clone()
+        out[0] -= model[s.rows.y0 : s.rows.y0 + s.rows.n, None].to(s.dev)
+        s.data = out
+
+
+def _linearity(s, cfg):
+    lin = linearity.LinearityData(
+        s.full("lin_coefs"), s.full("lin_smin"), s.full("lin_smax"),
+        s.full("lin_sref"), s.full("lin_dq"),
+    )
+    attempt = (s.rdq & i32(gdq.SATURATED)) == 0
+    if cfg["lin"] == "cuda":
+        s.data, dq_lin = linearity_cuda.apply_linearity_cube_fused(
+            s.data.contiguous(), lin, attempt,
+            do_not_flag_first=cfg["first_is_reset"],
+        )
+    else:
+        s.data, dq_lin = linearity.apply_linearity_cube(
+            s.data, lin, do_not_flag_first=cfg["first_is_reset"],
+            attempt_corr=attempt,
+        )
+    s.pdq = s.pdq | dq_lin
+
+
+def _ipc(s, route):
+    """Order-2 inverse on the active region, border passthrough, on the
+    slab with its halo; the result is the slab's own rows."""
+    nb, r = s.nb, s.rows
+    if route in SLAB_ROUTES:
+        # the slab routes: y = active * gain, (3y - 3Ky) + K Ky,
+        # / gain, merged into the frame
+        fn = {"slab": ipc_slab.correct_cube_fused,
+              "slab-stream": ipc_slab.correct_cube_stream,
+              "slab-plain": ipc_slab.correct_cube_plain}[route]
+        s.data = fn(s.data.contiguous(), s.arr["ipc_kernel_padded"], s.full("gain")[s.act],
+                    nb, SLAB_TH, r.y0, r.lo, r.hi)
+    else:
+        fn = ipc_cuda.ipc_rev2_rows if route == "cuda" else ipc_cuda.ipc_rev2_rows_plain
+        s.data = fn(s.data.contiguous(), s.full("ipc_kernel_frame"), s.full("gain"), nb,
+                    r.y0, r.lo, r.hi)
+
+
+def _ramp(s, plan, cfg):
+    fit = likely.ramp_fit_likely if cfg["likelihood_fit"] else ramp.ramp_fit
+    res = fit(s.data, s.rdq, s.pdq, plan, s.full("gain"), s.full("read_sigma"),
+              nborder=s.nb, interior=s.interior())
+    s.slope, s.ser, s.sep, s.rdq, s.pdq = res[:5]
+    s.dumo, s.chisq = res[5:] if cfg["likelihood_fit"] else (None, None)
+
+
+def _dark_flat(s, cfg, has_ipc):
+    """Dark current (IPC-corrected dark slope), border zeroing, flat
+    field (reference flatutils.get_flat + area factor)."""
+    act = s.act
+    zero = torch.zeros((), dtype=torch.int32, device=s.dev)
+    if has_ipc:
+        s.slope = _add_active(s.slope, -s.active("dark_slope_ipc"), act)
+    else:
+        s.slope = _add_active(s.slope, -s.full("dark_slope")[act], act)
+    if cfg["has_dark_dq"]:
+        s.pdq = s.pdq | s.full("dark_dq")
+
+    # zero the border of the science/variance maps (reference
+    # do_ramp_fit re-embedding, gen_cal_image.py:470-475)
+    interior = s.interior()
+    fzero = torch.zeros((), dtype=torch.float32, device=s.dev)
+    s.slope = torch.where(interior, s.slope, fzero)
+    s.ser = torch.where(interior, s.ser, fzero)
+    s.sep = torch.where(interior, s.sep, fzero)
+
+    flat = torch.ones((s.rows.n, s.nside), dtype=torch.float32, device=s.dev)
+    flat[act] = s.full("flat")[act]
+    s.pdq = s.pdq | torch.where((flat < 0.1) | (flat > 10.0),
+                                i32(pixel.NO_FLAT_FIELD), zero)
+    flat = torch.clamp(flat, 0.1, 10.0)
+    if has_ipc:
+        no_gain = torch.zeros((s.rows.n, s.nside), dtype=torch.bool, device=s.dev)
+        no_gain[act] = s.full("gain")[act] <= 0.1
+        s.pdq = s.pdq | torch.where(no_gain, i32(pixel.NO_GAIN_VALUE), zero)
+        flat[act] = s.active("flat_ipc")
+    s.flat = flat / s.full("area_factor")
+    s.slope = s.slope / s.flat
+    s.ser = s.ser / s.flat
+    s.sep = s.sep / s.flat
+
+
+def _sky(slabs, cfg, ab, geom, lead, stage):
+    """Sky mode (PixelMask1, 4 x 4 bins) and the medfit Legendre sky,
+    on the whole frame's slope and pixel DQ gathered on ``lead``; each
+    slab subtracts its rows of the model.  Returns (medsky, skycoefs)
+    on ``lead``."""
+    nside, nb, _ = geom
+    do_mode = "sky" not in ab and "smooth" not in ab
+    do_fit = cfg["skyorder"] >= 0 and "sky" not in ab and "medfit" not in ab
+    for s in slabs:
+        s.slope_withsky = s.slope
+    slope = _gather([s.slope for s in slabs], lead) if do_mode or do_fit else None
+    if do_mode:
+        m = mask.PixelMask1.build(_gather([s.pdq for s in slabs], lead))
+        nan = torch.full((), float("nan"), dtype=torch.float32, device=lead)
+        medsky, _ = sky.smooth_mode(
+            sky.binkxk(torch.where(~m, slope, nan), 4)
+        )
+    else:
+        medsky = torch.zeros((), dtype=torch.float32, device=lead)
+    stage("sky_fit")
+    if do_fit:
+        act = slice(nb, nside - nb)
+        skycoefs, skymodel = sky.medfit(
+            slope[act, act], order=cfg["skyorder"], backend=cfg["med"],
+        )
+        for s in slabs:
+            s.slope = _add_active(
+                s.slope, -skymodel[s.rows.active_span(nside, nb)].to(s.dev), s.act)
+    else:
+        skycoefs = torch.zeros(0, dtype=torch.float32, device=lead)
+    return medsky, skycoefs
+
+
+def calibrate_rows(parts, plan, cfg, geom):
+    """The calibration core on the row slabs of one frame.
+
+    ``parts`` is a list of ``(arr, rows)`` in row order: each slab's
+    array bundle (full-height arrays at the frame rows ``rows``,
+    active-height ones at their active rows, metadata-scale ones whole)
+    and its :class:`Rows`.  The stages run slab after slab from this
+    thread; each slab's tensors stay on its device.  Per-pixel stages
+    and the per-row medians are the slab's own; the halo rows feed the
+    3 x 3 saturation grow and the IPC inverse and are trimmed after it;
+    what spans rows (the refpix fit and channel lines, the WFI18 fit,
+    the sky) is computed once on the first slab's device from gathered
+    rows (:data:`gathered_bytes`) and sent back.  One part holding the
+    whole frame (``Rows(0, nside)``) is the single-SCA core of
+    :func:`make_core`.  Returns one output dict per slab: its own rows,
+    ``endslice`` its active rows, ``medsky`` / ``skycoefs`` the same on
+    every slab.
+    """
+    nside, nb, _ = geom
+    # diagnostic stage ablation: names in cfg["ablate"] are skipped
+    ab = cfg.get("ablate", ())
+    has_ipc = cfg["has_ipc"] and "ipc" not in ab
+    slabs = [_Slab(arr, rows, nside, nb) for arr, rows in parts]
+    lead = slabs[0].dev
+    ngrp = slabs[0].data.shape[0]
+
+    stage = StageRanges()
+    stage("saturation")
+    for s in slabs:
+        _saturation(s, cfg, ab)
+    stage("refpix")
+    if "refpix" not in ab:
+        _refpix(slabs, cfg, geom, lead)
+
+    stage("bias_decay_wfi18")
+    for s in slabs:
+        if cfg["has_biascorr"]:
+            s.data = s.data.clone()
+            s.data[(slice(None),) + s.act] -= s.active("biascorr")
+        if cfg["has_dark_decay"]:
+            s.data = s.data - s.arr["dark_decay_signal"][:, None, None]
+    if cfg["wfi18"]:
+        _wfi18(slabs, geom, lead)
+
+    stage("linearity")
+    if "linearity" not in ab:
+        for s in slabs:
+            _linearity(s, cfg)
+
+    if has_ipc:
+        stage("ipc_slab" if cfg["ipc"] in SLAB_ROUTES else "ipc")
+    for s in slabs:
+        if has_ipc:
+            _ipc(s, cfg["ipc"])
+        s.trim(has_ipc)
+
+    stage("ramp_fit_likely" if cfg["likelihood_fit"] else "ramp_fit")
+    for s in slabs:
+        _ramp(s, plan, cfg)
+
+    stage("dark_flat")
+    for s in slabs:
+        _dark_flat(s, cfg, has_ipc)
+
+    stage("sky_mode")
+    medsky, skycoefs = _sky(slabs, cfg, ab, geom, lead, stage)
+
+    stage("endslice")
+    outs = []
+    for s in slabs:
+        firstsat = ramp.first_saturated_group(s.rdq)[s.act]
+        out = {
+            "slope": s.slope,
+            "slope_withsky": s.slope_withsky,
+            "slope_err_read": s.ser,
+            "slope_err_poisson": s.sep,
+            "pdq": s.pdq,
+            "rdq": s.rdq,
+            "flat": s.flat,
+            "medsky": medsky.to(s.dev),
+            "skycoefs": skycoefs.to(s.dev),
+            "endslice": torch.where(
+                firstsat < ngrp, firstsat - 1, torch.full_like(firstsat, -1)
+            ).to(torch.int8),
+        }
+        if s.dumo is not None:
+            # dumo is slope-like -> flat-field it (gen_cal_image.py:671)
+            out["dumo"] = s.dumo / s.flat
+            out["chisq"] = s.chisq
+        # the default is the product contract: PRODUCT_OUTPUTS plus the
+        # likelihood diagnostics
+        keys = cfg.get("outputs") or (
+            PRODUCT_OUTPUTS + (("dumo", "chisq") if s.dumo is not None else ())
+        )
+        outs.append({k: out[k] for k in keys})
+    stage.close()
+    return outs
+
+
 def make_core(plan, cfg, geom):
     """Build the calibration core for one (MA table, config).
 
     ``cfg`` is the dict of static choices from :func:`prepare_inputs`;
     ``geom`` = (nside, nborder, channelwidth).  Returns a function from
-    the device array bundle to a dict of device tensors.
+    the device array bundle to a dict of device tensors:
+    :func:`calibrate_rows` on the whole frame.
     """
-    nside, nborder, channelwidth = geom
-    nb = nborder
-    act = (slice(nb, nside - nb), slice(nb, nside - nb))
-    # diagnostic stage ablation: names in cfg["ablate"] are skipped
-    ab = cfg.get("ablate", ())
-    has_ipc = cfg["has_ipc"] and "ipc" not in ab
+    whole = Rows(0, geom[0])
 
     def core(arr):
-        data = arr["data"]  # (ngrp, N, N) float32, not modified
-        dev = data.device
-        ngrp = data.shape[0]
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-
-        # ---- dq initialization (romancal do_dqinit analog) ----
-        stage = StageRanges()
-        stage("saturation")
-        pdq = arr["mask_dq"]
-        rdq = torch.zeros(data.shape, dtype=torch.int32, device=dev)
-        if cfg["exclude_first"]:
-            rdq[0] |= i32(gdq.DO_NOT_USE)
-
-        # ---- saturation ----
-        if "saturation" not in ab:
-            rdq, pdq = saturation.flag_saturation(
-                data, rdq, pdq, arr["saturation"], arr["saturation_dq"],
-                backup=cfg["backup"], skip_first=1, n_pix_grow_sat=1,
-            )
-
-        # ---- reference pixel correction ----
-        stage("refpix")
-        if "refpix" not in ab:
-            data = _refpix_correct(
-                data, arr["dark_cube"], arr["amp33"], arr["amp33_med"],
-                arr["opt_slope"], nside, nborder, channelwidth,
-                cfg["use_amp33"],
-            )
-
-        # ---- bias correction ----
-        stage("bias_decay_wfi18")
-        if cfg["has_biascorr"]:
-            data = data.clone()
-            data[:, act[0], act[1]] -= arr["biascorr"]
-
-        # ---- dark decay ----
-        if cfg["has_dark_decay"]:
-            data = data - arr["dark_decay_signal"][:, None, None]
-
-        # ---- WFI18 transient ----
-        if cfg["wfi18"]:
-            data = _correct_wfi18(data, arr["wfi18_basis"], nside, nborder)
-
-        # ---- linearity ----
-        stage("linearity")
-        if "linearity" not in ab:
-            lin = linearity.LinearityData(
-                arr["lin_coefs"], arr["lin_smin"], arr["lin_smax"],
-                arr["lin_sref"], arr["lin_dq"],
-            )
-            attempt = (rdq & i32(gdq.SATURATED)) == 0
-            if cfg["lin"] == "cuda":
-                data, dq_lin = linearity_cuda.apply_linearity_cube_fused(
-                    data.contiguous(), lin, attempt,
-                    do_not_flag_first=cfg["first_is_reset"],
-                )
-            else:
-                data, dq_lin = linearity.apply_linearity_cube(
-                    data, lin, do_not_flag_first=cfg["first_is_reset"],
-                    attempt_corr=attempt,
-                )
-            pdq = pdq | dq_lin
-
-        # ---- IPC deconvolution ----
-        # order-2 inverse on the active region, border passthrough; the
-        # dark-slope and clipped-flat deconvolutions are cal-only work,
-        # precomputed once per cal pack (ipc_precal)
-        route = cfg["ipc"]
-        if has_ipc and route in SLAB_ROUTES:
-            # the slab routes: y = active * gain, (3y - 3Ky) + K Ky,
-            # / gain, merged into the frame
-            stage("ipc_slab")
-            gain_act = arr["gain"][act]
-            kp = arr["ipc_kernel_padded"]
-            if route == "slab":
-                data = ipc_slab.correct_cube_fused(
-                    data.contiguous(), kp, gain=gain_act, nborder=nb,
-                    th=SLAB_TH)
-            elif route == "slab-stream":
-                data = ipc_slab.correct_cube_stream(
-                    data.contiguous(), kp, gain=gain_act, nborder=nb,
-                    th=SLAB_TH)
-            else:
-                data = ipc_slab.correct_cube_plain(
-                    data, kp, gain=gain_act, nborder=nb, th=SLAB_TH)
-        elif has_ipc:
-            stage("ipc")
-            ipc_fn = (ipc_cuda.ipc_rev2_frame if route == "cuda"
-                      else ipc_cuda.ipc_rev2_frame_plain)
-            data = ipc_fn(data.contiguous(), arr["ipc_kernel_frame"],
-                          arr["gain"], nborder=nb)
-
-        # ---- ramp fit + jump detection ----
-        dumo = chisq = None
-        if cfg["likelihood_fit"]:
-            stage("ramp_fit_likely")
-            slope, ser, sep, rdq, pdq, dumo, chisq = likely.ramp_fit_likely(
-                data, rdq, pdq, plan, arr["gain"], arr["read_sigma"],
-                nborder=nborder,
-            )
-        else:
-            stage("ramp_fit")
-            slope, ser, sep, rdq, pdq = ramp.ramp_fit(
-                data, rdq, pdq, plan, arr["gain"], arr["read_sigma"],
-                nborder=nborder,
-            )
-
-        # ---- dark current subtraction (IPC-corrected dark slope) ----
-        stage("dark_flat")
-        if has_ipc:
-            slope = _add_active(slope, -arr["dark_slope_ipc"], nb)
-        else:
-            slope = _add_active(slope, -arr["dark_slope"][act], nb)
-        if cfg["has_dark_dq"]:
-            pdq = pdq | arr["dark_dq"]
-
-        # zero the border of the science/variance maps (reference
-        # do_ramp_fit re-embedding, gen_cal_image.py:470-475)
-        interior = ramp.interior_mask(nside, nside, nb, dev)
-        fzero = torch.zeros((), dtype=torch.float32, device=dev)
-        slope = torch.where(interior, slope, fzero)
-        ser = torch.where(interior, ser, fzero)
-        sep = torch.where(interior, sep, fzero)
-
-        # ---- flat field (reference flatutils.get_flat + area factor) ----
-        flat = torch.ones((nside, nside), dtype=torch.float32, device=dev)
-        flat[act] = arr["flat"][act]
-        pdq = pdq | torch.where((flat < 0.1) | (flat > 10.0),
-                                i32(pixel.NO_FLAT_FIELD), zero)
-        flat = torch.clamp(flat, 0.1, 10.0)
-        if has_ipc:
-            no_gain = torch.zeros((nside, nside), dtype=torch.bool, device=dev)
-            no_gain[act] = arr["gain"][act] <= 0.1
-            pdq = pdq | torch.where(no_gain, i32(pixel.NO_GAIN_VALUE), zero)
-            flat[act] = arr["flat_ipc"]
-        flat = flat / arr["area_factor"]
-        slope = slope / flat
-        ser = ser / flat
-        sep = sep / flat
-
-        # ---- sky ----
-        stage("sky_mode")
-        slope_withsky = slope
-        if "sky" not in ab and "smooth" not in ab:
-            m = mask.PixelMask1.build(pdq)
-            nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
-            medsky, _ = sky.smooth_mode(
-                sky.binkxk(torch.where(~m, slope, nan), 4)
-            )
-        else:
-            medsky = torch.zeros((), dtype=torch.float32, device=dev)
-        stage("sky_fit")
-        if cfg["skyorder"] >= 0 and "sky" not in ab and "medfit" not in ab:
-            skycoefs, skymodel = sky.medfit(
-                slope[act], order=cfg["skyorder"], backend=cfg["med"],
-            )
-            slope = _add_active(slope, -skymodel, nb)
-        else:
-            skycoefs = torch.zeros(0, dtype=torch.float32, device=dev)
-
-        # ---- endslice (SLICEOUT) ----
-        stage("endslice")
-        firstsat = ramp.first_saturated_group(rdq)[act]
-        endslice = torch.where(
-            firstsat < ngrp, firstsat - 1, torch.full_like(firstsat, -1)
-        ).to(torch.int8)
-
-        out = {
-            "slope": slope,
-            "slope_withsky": slope_withsky,
-            "slope_err_read": ser,
-            "slope_err_poisson": sep,
-            "pdq": pdq,
-            "rdq": rdq,
-            "flat": flat,
-            "medsky": medsky,
-            "skycoefs": skycoefs,
-            "endslice": endslice,
-        }
-        if dumo is not None:
-            # dumo is slope-like -> flat-field it (gen_cal_image.py:671)
-            out["dumo"] = dumo / flat
-            out["chisq"] = chisq
-        stage.close()
-        # the default is the product contract: PRODUCT_OUTPUTS plus the
-        # likelihood diagnostics
-        keys = cfg.get("outputs") or (
-            PRODUCT_OUTPUTS + (("dumo", "chisq") if dumo is not None else ())
-        )
-        return {k: out[k] for k in keys}
+        return calibrate_rows([(arr, whole)], plan, cfg, geom)[0]
 
     return core
 

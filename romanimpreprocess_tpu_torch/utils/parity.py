@@ -40,6 +40,11 @@ machine): ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 - :func:`same_tree`: two ASDF trees of one product from two of the
   port's paths (serial and focal-plane): the same keys, types and
   values, arrays bit for bit, the L2 log's ``Timing:`` lines aside.
+- :func:`row_shard_gate`: the row-sharded core's outputs
+  (``parallel.spatial``) against the single-SCA core's on one bundle,
+  at the JAX package's ``tests/test_spatial.py`` gate: integer outputs
+  bit for bit, float outputs within 1e-4 of ``1 + |ref|`` (``chisq``
+  and ``dumo`` 1e-3).
 """
 
 import numpy as np
@@ -123,6 +128,27 @@ def compare_outputs(ref, got, what, maps=MAPS, loose_bits=JUMP_DET, atol_frac=1e
                  f"{what}: {k} outside one float16 ulp on {rep[k + '_outside_frac']}")
     rep["bit_exact"] = all(np.array_equal(ref[k], got[k]) for k in ref)
     return rep
+
+
+def row_shard_gate(ref, got, what):
+    """Hold the row-sharded core's outputs ``got`` to the single core's
+    ``ref`` (dicts of tensors or arrays, same keys and shapes): integers
+    bit for bit, floats within ``max |got - ref| / (1 + |ref|)`` < 1e-4
+    (1e-3 for ``chisq`` and ``dumo``, sums over groups).  Returns the
+    measured drift per output (0.0 where equal)."""
+    _require(set(got) == set(ref), f"{what}: outputs {sorted(got)} vs {sorted(ref)}")
+    drift = {}
+    for k in ref:
+        a, b = (np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in (ref[k], got[k]))
+        _require(a.shape == b.shape, f"{what}: {k} shape {b.shape} vs {a.shape}")
+        if a.dtype.kind in "ui":
+            _require(np.array_equal(a, b), f"{what}: {k} integers differ")
+            drift[k] = 0.0
+            continue
+        drift[k] = float(np.max(np.abs(a - b) / (1.0 + np.abs(a)))) if a.size else 0.0
+        tol = 1e-3 if k in FLOAT16 else 1e-4
+        _require(drift[k] < tol, f"{what}: {k} drift {drift[k]} (gate {tol})")
+    return drift
 
 
 #: the sky stages of the core: ``medfit``'s N x N block grid and the

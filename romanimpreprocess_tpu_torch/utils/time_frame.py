@@ -12,14 +12,19 @@ frames narrower than one warp strip or a multiple of neither the strip
 nor the segment, nborder 4, 2, 1 and 0, a NaN and infinities in the
 border rows and columns the inverse reads), bit for bit with NaN at the
 same places, then at the main path's shape (6 groups of 4096^2,
-nborder 4), and prints one JSON line: the card, each check's result,
+nborder 4).  The row-slab form (``ipc_cuda.ipc_rev2_rows``) is held the
+same way: the frame cut into 2 to 5 row slabs with their halos
+(``utils.rows.split_rows``), each slab's output bit for bit to its
+twin and the slabs together bit for bit to the frame kernel's output.
+It prints one JSON line: the card, each check's result,
 at full size the CUDA-event median of ``--runs`` calls timed one by one
 (``ms``: the wrapper's host work before its launch included, as
 ``chip_smoke.py`` times it) and of ``--runs`` batches of 10 calls
 enqueued back to back (``ms_batched``, per call: the host work hidden
 behind the previous launch), the least time the card could take (bytes
-over the memory rate), and ``nvcc``'s register report of the IPC
-kernels.  It exits non-zero, after that line, if a check failed.
+over the memory rate), the median of the two halves of the frame as
+row slabs (``rows_ms``, both calls), and ``nvcc``'s register report of
+the IPC kernels.  It exits non-zero, after that line, if a check failed.
 """
 
 import argparse
@@ -104,6 +109,43 @@ def check(ngrp, nside, nb, gen, nonfinite=False):
             "max_abs_err": (got - ref)[fin].abs().max().item()}
 
 
+def slabs(data, planes, gain, n):
+    """The frame's inputs cut into ``n`` row slabs with the least halo
+    the inverse reads (``ipc_slab.NEUMANN_EXT`` rows): ``[(data, planes,
+    gain, row0, lo, hi)]``, each slab contiguous."""
+    from romanimpreprocess_tpu_torch.ops import ipc_slab
+    from romanimpreprocess_tpu_torch.utils.rows import split_rows
+
+    out = []
+    for r in split_rows(data.shape[-2], n, ipc_slab.NEUMANN_EXT):
+        rows = slice(r.y0, r.y0 + r.n)
+        out.append((data[:, rows].contiguous(), planes[:, rows].contiguous(),
+                    gain[rows].contiguous(), r.y0, r.lo, r.hi))
+    return out
+
+
+def check_rows(ngrp, nside, nb, n, gen, nonfinite=False):
+    """The row-slab form on ``n`` slabs: each slab bit for bit to its
+    twin, the slabs together bit for bit to the frame kernel."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.ops import ipc_cuda
+
+    data, planes, gain = inputs(ngrp, nside, nb, gen, nonfinite)
+    frame = ipc_cuda.ipc_rev2_frame(data, planes, gain, nb)
+    got, twin = [], []
+    for d, p, g, row0, lo, hi in slabs(data, planes, gain, n):
+        got.append(ipc_cuda.ipc_rev2_rows(d, p, g, nb, row0, lo, hi))
+        twin.append(ipc_cuda.ipc_rev2_rows_plain(d, p, g, nb, row0, lo, hi))
+    got = torch.cat(got, dim=1)
+    twin = torch.cat(twin, dim=1)
+    fin = torch.isfinite(twin)
+    return {"shape": [ngrp, nside, nside], "nborder": nb, "slabs": n,
+            "nonfinite": nonfinite,
+            "bit_exact": same_bits(got, twin) and same_bits(got, frame),
+            "max_abs_err": (got - twin)[fin].abs().max().item()}
+
+
 def _ptxas(src):
     """``nvcc``'s lines for ``csrc/<src>`` naming each kernel and giving
     its registers, stack and spills, if built."""
@@ -134,8 +176,13 @@ def main():
         (1, 20, 4, False), (6, 67, 4, True), (9, 131, 4, False), (17, 131, 4, True),
         (6, 1000, 4, False), (3, 1000, 2, True), (2, 67, 1, True), (5, 130, 0, False),
         (6, 4096, 4, True))]
+    checks += [check_rows(ngrp, nside, nb, n, gen, bad) for ngrp, nside, nb, n, bad in (
+        (1, 20, 4, 2, False), (6, 67, 4, 3, True), (9, 131, 4, 5, False),
+        (17, 131, 2, 4, True), (3, 1000, 1, 3, True), (5, 130, 0, 2, False),
+        (6, 4096, 4, 2, True), (6, 4096, 4, 3, False))]
     ngrp, nside, nb = 6, 4096, 4
     data, planes, gain = inputs(ngrp, nside, nb, gen)
+    halves = slabs(data, planes, gain, 2)
     res = {"label": args.label, "card": torch.cuda.get_device_name(0),
            "nvidia_smi": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -147,6 +194,9 @@ def main():
                             args.runs),
            "ms_batched": _median_ms(
                lambda: ipc_cuda.ipc_rev2_frame(data, planes, gain, nb), args.runs, 10),
+           "rows_ms": _median_ms(
+               lambda: [ipc_cuda.ipc_rev2_rows(d, p, g, nb, r0, lo, hi)
+                        for d, p, g, r0, lo, hi in halves], args.runs),
            "ptxas": {src: _ptxas(src) for src in cuda_build.SOURCES
                      if "ipc" in src and src != "ipc_fwd.cu"},
            "checks": checks}

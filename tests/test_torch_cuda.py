@@ -40,6 +40,7 @@ from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc, ipc_cuda,
                                              pink_cuda, sky)
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, noise, sim_to_l1
 from romanimpreprocess_tpu_torch.utils import parity, time_frame
+from romanimpreprocess_tpu_torch.utils.rows import Rows
 
 torch.set_num_threads(1)
 
@@ -645,3 +646,114 @@ def test_calib_predicted_dark_cube_on_cuda_matches_cpu(cuda_device):
     default = postprocess.predicted_dark_cube(dark, lin, rp, 3.04, 1.5)
     np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-5 * np.abs(cpu).max())
     np.testing.assert_array_equal(default, card)
+
+
+# (ngrp, nside, nborder, slabs): the frame cut into 2 to 5 row slabs with
+# their halos, at a frame narrower than one warp strip (20), sizes that
+# are multiples of neither the strip nor the segment, nborder 4, 2, 1, 0
+ROWS_CASES = [(1, 20, 4, 2), (6, 67, 4, 3), (9, 131, 4, 5), (17, 131, 2, 4),
+              (3, 1000, 1, 3), (5, 130, 0, 2), (6, 1000, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ngrp,nside,nb,n", ROWS_CASES)
+def test_ipc_rows_cuda_matches_plain(cuda_device, ngrp, nside, nb, n):
+    """The frame inverse's row-slab form (``ipc_cuda.ipc_rev2_rows``) on
+    the slabs of ``utils.rows.split_rows``: each slab bit for bit to its
+    twin, and the slabs together bit for bit to the frame kernel, with
+    and without a NaN and infinities in the border rows and columns read
+    (``time_frame.check_rows``).  One launch a slab, and one for the
+    frame."""
+    gen = torch.Generator(device=cuda_device).manual_seed(nside + ngrp + nb + n)
+    for nonfinite in (False, True):
+        n0 = ipc_cuda.launches
+        res = time_frame.check_rows(ngrp, nside, nb, n, gen, nonfinite)
+        torch.cuda.synchronize()
+        assert res["bit_exact"], res
+        assert ipc_cuda.launches == n0 + n + 1
+
+
+@pytest.mark.cuda
+def test_spatial_core_on_one_card_two_entries(cuda_device):
+    """The row-sharded core at 4096^2 on a one-card mesh of two entries
+    (``cuda:0`` twice), every backend ``auto``: kernels A, B (its
+    row-slab form, one launch a slab) and C, and the outputs at the JAX
+    package's ``tests/test_spatial.py`` gate against the single core
+    (``parity.row_shard_gate``)."""
+    from romanimpreprocess_tpu_torch import benchlib
+    from romanimpreprocess_tpu_torch.parallel import spatial
+
+    arr, plan, cfg, geom = benchlib.core_bundle(nside=4096, device=cuda_device)
+    ref = l1_to_l2.make_core(plan, cfg, geom)(arr)
+    mesh = spatial.row_mesh(devices=[cuda_device, cuda_device])
+    core = spatial.make_spatial_calibrator(plan, cfg, geom, mesh)
+    counts = (linearity_cuda.launches, ipc_cuda.launches, median_cuda.launches)
+    out = spatial.gather_rows(core(spatial.shard_rows(mesh, arr, geom)), cuda_device)
+    torch.cuda.synchronize()
+    assert (linearity_cuda.launches - counts[0], ipc_cuda.launches - counts[1],
+            median_cuda.launches - counts[2]) == (2, 2, 1)
+    parity.row_shard_gate(ref, out, "4096^2 over two entries")
+
+
+# (ngrp, nside, nborder, slabs, th, padded): the slab routes' row form
+SLAB_ROWS_CASES = [(3, 96, 4, 2, 16, True), (9, 131, 4, 5, 32, True),
+                   (1, 20, 4, 2, 8, False), (17, 67, 2, 3, 8, False),
+                   (6, 1000, 4, 4, 32, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ngrp,nside,nb,n,th,padded", SLAB_ROWS_CASES)
+def test_slab_rows_cuda_matches_plain(cuda_device, ngrp, nside, nb, n, th, padded):
+    """The slab routes on row slabs (``correct_cube_fused`` /
+    ``correct_cube_stream`` with ``row0, lo, hi``: the slab kernel with a
+    row count of its own) on the slabs of ``utils.rows.split_rows``: each
+    slab bit for bit to its twin, and the slabs together bit for bit to
+    ``correct_cube_fused`` on the whole frame; one launch a slab, counted
+    on the fused and the streaming counters."""
+    gen = torch.Generator(device=cuda_device).manual_seed(nside + ngrp + n)
+    data, planes, gain = time_frame.inputs(ngrp, nside, nb, gen)
+    na = nside - 2 * nb
+    act = slice(nb, nside - nb)
+    K = planes[:, act, act].reshape(3, 3, na, na).contiguous()
+    kern = (torch.from_numpy(ipc_slab.kernel_planes_padded(K.cpu().numpy(), th=th))
+            .to(cuda_device) if padded else K)
+    whole = ipc_slab.correct_cube_fused(data, kern, gain[act, act], nb, th)
+    counts = (ipc_slab.fused_launches, ipc_slab.stream_launches)
+    got = {"fused": [], "stream": []}
+    for d, _, g, row0, lo, hi in time_frame.slabs(data, planes, gain, n):
+        g = g[Rows(row0, d.shape[1], lo, hi).active(nside, nb), act]
+        twin = ipc_slab.correct_cube_plain(d, kern, g, nb, th, row0, lo, hi)
+        for name, fn in (("fused", ipc_slab.correct_cube_fused),
+                         ("stream", ipc_slab.correct_cube_stream)):
+            out = fn(d, kern, g, nb, th, row0, lo, hi)
+            assert time_frame.same_bits(out, twin), name
+            got[name].append(out)
+    torch.cuda.synchronize()
+    for name in got:
+        assert time_frame.same_bits(torch.cat(got[name], dim=1), whole), name
+    assert (ipc_slab.fused_launches - counts[0],
+            ipc_slab.stream_launches - counts[1]) == (n, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["pallas", "pallas-stream"])
+def test_spatial_core_slab_routes_on_cuda(cuda_device, route):
+    """The row-sharded core with the likelihood fit under ``IPC_BACKEND:
+    pallas`` / ``pallas-stream`` (kernels 6 / 5 in their row form) on a
+    one-card mesh of three entries at 512^2, against the single core."""
+    from romanimpreprocess_tpu_torch import benchlib
+    from romanimpreprocess_tpu_torch.parallel import spatial
+
+    arr, plan, cfg, geom = benchlib.core_bundle(nside=512, likelihood=True,
+                                                device=cuda_device,
+                                                config={"IPC_BACKEND": route})
+    assert cfg["ipc"] in ("slab", "slab-stream")
+    ref = l1_to_l2.make_core(plan, cfg, geom)(arr)
+    mesh = spatial.row_mesh(devices=[cuda_device] * 3)
+    counter = "fused_launches" if cfg["ipc"] == "slab" else "stream_launches"
+    n0 = getattr(ipc_slab, counter)
+    out = spatial.make_spatial_calibrator(plan, cfg, geom, mesh)(
+        spatial.shard_rows(mesh, arr, geom))
+    torch.cuda.synchronize()
+    assert getattr(ipc_slab, counter) == n0 + 3
+    parity.row_shard_gate(ref, spatial.gather_rows(out, cuda_device), route)

@@ -68,7 +68,8 @@ def test_every_module_imports_without_jax():
               "calib", "calib.convert", "calib.swconfig", "calib.mast", "calib.make_dark",
               "calib.make_gain", "calib.makemask", "calib.characterize",
               "calib.postprocess", "utils.visualize", "utils.fpaplot", "utils.diff",
-              "utils.context_figure", "utils.orientation", "utils.profiling"):
+              "utils.context_figure", "utils.orientation", "utils.profiling",
+              "parallel.spatial", "utils.rows", "utils.time_core"):
         assert "romanimpreprocess_tpu_torch." + m in _modules()
 
 

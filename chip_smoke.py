@@ -938,6 +938,10 @@ def phase_plain_devices(card):
         rep = parity.plain_devices(d, "cpu", torch.device("cuda"))
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    # reported, not gated: per output, the share of values whose bits
+    # differ between the card's plain path and the CPU's, and the
+    # largest difference in ulps and in value
+    emit({"phase": "plain_devices_bits", "card": card, "nside": 128, **rep.pop("bits")})
     emit({"phase": "plain_devices", "ok": True, "card": card, "nside": 128,
           "seconds": time.perf_counter() - t0, **rep})
 

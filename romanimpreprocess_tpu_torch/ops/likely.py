@@ -50,6 +50,7 @@ from .ramp import (
     first_saturated_group,
     interior_mask,
     propagate_pdq,
+    sqrt_rn,
 )
 
 
@@ -412,8 +413,8 @@ def ramp_fit_likely(data, rdq, pdq, plan, gain, read_sigma, nborder=4, interior=
     # DNU, reference fitting.py:349).
     unusable_jump = (jump_grp < ngrp) & ~refit_layer
 
-    slope_err_poisson = torch.sqrt(torch.clamp(qP * dvardt, min=0.0))
-    slope_err_read = read_sigma * torch.sqrt(qR)
+    slope_err_poisson = sqrt_rn(torch.clamp(qP * dvardt, min=0.0))
+    slope_err_read = read_sigma * sqrt_rn(qR)
 
     # --- chisq of the FINAL fit (post-refit active set: refit pixels
     # report the clean prefix's goodness-of-fit, consistent with dumo);

@@ -233,6 +233,24 @@ def build_plan(meta, u, exclude_first=True, jump_pars=None):
 # Device-side fit
 # --------------------------------------------------------------------------
 
+def candidate_slopes(W, diffs):
+    """Every variant's slope, ``W @ diffs`` over the pixel axis, in full
+    float32.  The fit's one step whose order of summation neither
+    package sets: a BLAS product (XLA's order on the CPU changes with
+    the pixel count)."""
+    with full_fp32():
+        return W @ diffs
+
+
+def sqrt_rn(x):
+    """The correctly rounded square root of a float32 tensor, as IEEE
+    (and the reference) defines it.  PyTorch's float32 square root on
+    the CPU (a vector math library's) rounds some 0.7% of the values one
+    ulp low; taken in float64 and rounded once to float32 the root is
+    exact to the last bit, on every device."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def first_saturated_group(rdq):
     """Per-pixel index of the first SATURATED group (ngrp if none)."""
     ngrp = rdq.shape[0]
@@ -318,8 +336,7 @@ def ramp_fit(data, rdq, pdq, plan, gain, read_sigma, nborder=4, interior=None):
 
     # --- all candidate slopes: one product over the pixel axis ---
     diffs = (data - data[1][None]).reshape(ngrp, ny * nx)
-    with full_fp32():
-        slopes_all = (table(plan.W) @ diffs).reshape(nvar, ny, nx)
+    slopes_all = candidate_slopes(table(plan.W), diffs).reshape(nvar, ny, nx)
     slope = torch.gather(slopes_all, 0, v_idx[None])[0]
 
     coef_sel = table(plan.coef_poisson)[v_idx]
@@ -329,7 +346,7 @@ def ramp_fit(data, rdq, pdq, plan, gain, read_sigma, nborder=4, interior=None):
     dvardt = torch.clamp(slope / gain_c, min=0.0)  # Poisson var (DN^2) per s
     sig2read = read_sigma * read_sigma
 
-    slope_err_poisson = torch.sqrt(torch.clamp(coef_sel * dvardt, min=0.0))
+    slope_err_poisson = sqrt_rn(torch.clamp(coef_sel * dvardt, min=0.0))
     slope_err_read = read_sigma * rd_sel
 
     # --- flux-dependent jump threshold (log-interpolated) ---

@@ -130,6 +130,41 @@ def compare_outputs(ref, got, what, maps=MAPS, loose_bits=JUMP_DET, atol_frac=1e
     return rep
 
 
+def _ordered(a):
+    """float32 values as int64 keys in the order of the floats, one
+    apart for adjacent floats (-0 and +0 share a key)."""
+    i = np.ascontiguousarray(a, np.float32).view(np.int32).astype(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def bit_differences(ref, got):
+    """Per output of two runs (dicts of arrays, the same keys): the
+    share of the values whose bits differ (NaN equal to NaN) and, for
+    float32 outputs, the largest difference between numbers in ulps and
+    in value (a NaN against a number counts in the share only).  The
+    ulps count the floats between the two values, so two small values
+    on either side of 0 read millions of ulps apart.  Reported, not
+    gated."""
+    rep = {}
+    for k in sorted(ref):
+        a, b = np.asarray(ref[k]), np.asarray(got[k])
+        if a.dtype.kind == "f":
+            a32, b32 = a.astype(np.float32), b.astype(np.float32)
+            nan_a, nan_b = np.isnan(a32), np.isnan(b32)
+            off = (a32.view(np.int32) != b32.view(np.int32)) & ~(nan_a & nan_b)
+            num = ~(nan_a | nan_b)
+            ulps = np.abs(_ordered(a32[num]) - _ordered(b32[num]))
+            dif = np.abs(a32[num].astype(np.float64) - b32[num])
+            rep[k] = {"share": float(off.mean()) if off.size else 0.0,
+                      "max_ulps": int(ulps.max()) if ulps.size else 0,
+                      "max_abs": float(dif.max()) if dif.size else 0.0}
+        else:
+            off = a != b
+            rep[k] = {"share": float(off.mean()) if off.size else 0.0, "max_ulps": None,
+                      "max_abs": None}
+    return rep
+
+
 def row_shard_gate(ref, got, what):
     """Hold the row-sharded core's outputs ``got`` to the single core's
     ``ref`` (dicts of tensors or arrays, same keys and shapes): integers
@@ -352,7 +387,9 @@ def plain_devices(d, ref="cpu", dev="cuda", nside=128, nseed=8):
     On ``dev`` other library kernels run (matrix products, solves,
     reductions), so this is what holds the card's plain path, and with
     it every kernel held to that path, to the CPU's, which the CPU tests
-    hold to the JAX package.  Returns what was measured."""
+    hold to the JAX package.  Returns what was measured, with ``bits``:
+    :func:`bit_differences` of the two fits' outputs (``classic``,
+    ``likely_slab_plain``), reported, not gated."""
     from .. import synth
     from ..config import pattern_to_reads
     from ..io import asdf_lite, calfiles, fits_lite
@@ -376,6 +413,7 @@ def plain_devices(d, ref="cpu", dev="cuda", nside=128, nseed=8):
                for i, x in enumerate(devs)}
     rep["classic"] = compare_outputs(classic[ref], classic[dev],
                                      f"classic fit, {dev} vs {ref}")
+    rep["bits"] = {"classic": bit_differences(classic[ref], classic[dev])}
     nz = {"LAYER": list(NOISE_LAYERS), "SEED": 15000, "BACKEND": "device-strict"}
     cubes = {x: noise.make_noise_cube(
         dict(base, OUT=d + f"/L2_{i}.asdf", NOISE=nz, PINK_BACKEND="xla",
@@ -397,6 +435,7 @@ def plain_devices(d, ref="cpu", dev="cuda", nside=128, nseed=8):
         likely[x] = l1_to_l2.to_host(core(prep["arr"]))
     rep["likely_slab_plain"] = compare_outputs(
         likely[ref], likely[dev], f"likelihood fit (slab twin), {dev} vs {ref}")
+    rep["bits"]["likely_slab_plain"] = bit_differences(likely[ref], likely[dev])
 
     na = nside - 2 * nb
     yy, xx = np.mgrid[:na, :na]

@@ -15,7 +15,11 @@ median of ``--runs`` calls.  Prints one JSON line: the label, the
 package's path, the card's ``nvidia-smi`` name and power limit, and for
 each fit its median (``ms``) and the SHA-256 of its outputs' bytes in
 key order (``sha256``: two checkouts whose cores give the same bits
-print the same digest).
+print the same digest).  With ``--sky``, also the CUDA-event medians of
+the core's sky steps alone on a seeded 4096^2 frame:
+``sky.smooth_mode`` of its 4 x 4 bins, one bin in 35 NaN
+(``smooth_mode_ms``), and ``sky.medfit`` of order 2 on its active
+4088^2 (``medfit_ms``).
 """
 
 import argparse
@@ -29,6 +33,7 @@ def main():
     ap.add_argument("--label", default="")
     ap.add_argument("--nside", type=int, default=4096)
     ap.add_argument("--runs", type=int, default=9)
+    ap.add_argument("--sky", action="store_true", help="also time the sky steps alone")
     args = ap.parse_args()
 
     import torch
@@ -44,6 +49,17 @@ def main():
            "nvidia_smi": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                capture_output=True, text=True).stdout.strip()}
+    if args.sky:
+        from romanimpreprocess_tpu_torch.ops import sky
+
+        g = torch.Generator(device="cuda").manual_seed(0)
+        slope = torch.randn((args.nside, args.nside), device="cuda", generator=g) * 3 + 20
+        binned = sky.binkxk(slope, 4)
+        binned[::7, ::5] = float("nan")
+        act = slope[4:-4, 4:-4]
+        res["smooth_mode_ms"] = _median_ms(lambda: sky.smooth_mode(binned), args.runs)
+        res["medfit_ms"] = _median_ms(lambda: sky.medfit(act, order=2), args.runs)
+        del slope, binned, act
     for name, likelihood in (("classic", False), ("likely", True)):
         arr, plan, cfg, geom = benchlib.core_bundle(nside=args.nside, likelihood=likelihood,
                                                     device="cuda")

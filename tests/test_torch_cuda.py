@@ -362,7 +362,8 @@ def test_plain_path_on_cuda_matches_cpu(cuda_device, tmp_path):
     device (the two RNG streams differ)."""
     rep = parity.plain_devices(str(tmp_path), "cpu", cuda_device)
     assert set(rep) == {"classic", "likely_slab_plain", "noise", "sim_moments",
-                        "sim_envelope_cpu", "sim_envelope_cuda"}
+                        "sim_envelope_cpu", "sim_envelope_cuda", "bits"}
+    assert set(rep["bits"]) == {"classic", "likely_slab_plain"}
     assert len(rep["noise"]) == len(parity.NOISE_LAYERS)
     assert rep["classic"]["jump_det_diff_frac"] <= 1e-4
     assert rep["sim_moments"]["mean_dev_sigma"] < 4
@@ -757,3 +758,36 @@ def test_spatial_core_slab_routes_on_cuda(cuda_device, route):
     torch.cuda.synchronize()
     assert getattr(ipc_slab, counter) == n0 + 3
     parity.row_shard_gate(ref, spatial.gather_rows(out, cuda_device), route)
+
+
+@pytest.mark.cuda
+def test_sky_and_fit_steps_on_the_card_equal_the_cpu(cuda_device):
+    """The steps that hold the port op by op to the JAX package
+    (``tests/test_torch_opbyop.py``) give the CPU's bits on the card:
+    ``ramp.sqrt_rn`` (through float64 on both), ``sky.tree_sum_leaves``
+    (a ``cumsum`` down
+    columns on the card, adds one by one on the CPU; signed zeros alike),
+    ``sky.linspace32`` and ``sky.nanquantile``."""
+    from romanimpreprocess_tpu_torch.ops import ramp
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((10.0 ** rng.uniform(-30, 30, 1 << 20)).astype(np.float32))
+    got = ramp.sqrt_rn(x.to(cuda_device)).cpu().numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x.numpy()))
+    w = torch.from_numpy((rng.normal(0.0, 1.0, (40000, 19))
+                          * 10.0 ** rng.uniform(-3, 3, (40000, 19))).astype(np.float32))
+    w[:, 3] = -0.0
+    for n in (40000, 1250, 33, 7):  # trees of 3, 2, 1 and 0 levels, 19 bins
+        leaves = sky.tree_leaves(n, "cpu")
+        t = torch.cat([w[:n], w.new_zeros(1, 19)])[leaves]
+        got = sky.tree_sum_leaves(t.to(cuda_device), leaves.dim()).cpu()
+        assert torch.equal(got.view(torch.int32), sky.tree_sum_leaves(t, leaves.dim()).view(torch.int32))
+        t = t[..., 0]  # one column
+        got = sky.tree_sum_leaves(t.to(cuda_device), leaves.dim()).cpu()
+        assert torch.equal(got.view(torch.int32), sky.tree_sum_leaves(t, leaves.dim()).view(torch.int32))
+    for args in ((-1.0, 1.0, 21), (0.5, 7.5, 8), (-1.0, 1.0 - 2.0 / 4088, 4088)):
+        assert torch.equal(sky.linspace32(*args, cuda_device).cpu(), sky.linspace32(*args, "cpu"))
+    v = torch.from_numpy(rng.normal(0.0, 1.0, 100001).astype(np.float32))
+    v[::7] = float("nan")
+    qs = np.arange(1, 100, dtype=np.float32) / np.float32(100)
+    assert torch.equal(sky.nanquantile(v.to(cuda_device), qs).cpu(), sky.nanquantile(v, qs))

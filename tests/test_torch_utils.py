@@ -7,6 +7,7 @@ pixels; ``visualize`` writes a PDF; ``profiling.trace`` writes a
 ``torch.profiler`` Chrome trace.  ``parity.sky_bounds``: a slope map
 perturbed by a known amount moves ``medsky`` and ``skycoefs`` within the
 bound derived from that amount, and the gate trips past it.
+``parity.bit_differences``: the share, ulps and value of what differs.
 """
 
 import json
@@ -227,3 +228,18 @@ def test_sky_gate_counts_a_loose_pixel_as_an_order_statistic():
     assert rep["sky_loose_pixels"] == 1 and rep["sky_delta"] == 0.0
     assert rep["skycoefs_max_abs_err"] > 0
     assert max(rep["skycoefs_bound"]) > 1e-4 * np.abs(ref["skycoefs"]).max()
+
+
+def test_bit_differences_reads_ulps_and_values():
+    """Two values either side of 0 are as many ulps apart as there are
+    floats between them, however close in value; NaN equals NaN."""
+    ref = {"a": np.array([1.0, -1e-30, np.nan, 2.0], np.float32),
+           "dq": np.array([1, 2], np.uint32)}
+    got = {"a": np.array([1.0, 1e-30, np.nan, np.nextafter(np.float32(2), np.float32(3))],
+                         np.float32),
+           "dq": np.array([1, 3], np.uint32)}
+    rep = parity.bit_differences(ref, got)
+    assert rep["a"]["share"] == 0.5
+    assert rep["a"]["max_ulps"] == 2 * int(np.float32(1e-30).view(np.int32))
+    assert rep["a"]["max_abs"] == np.spacing(np.float32(2))
+    assert rep["dq"] == {"share": 0.5, "max_ulps": None, "max_abs": None}

@@ -1116,7 +1116,7 @@ def _spatial_case(prep, mesh, what, timed=False):
 
     from romanimpreprocess_tpu_torch.parallel import spatial
     from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
-    from romanimpreprocess_tpu_torch.utils import parity
+    from romanimpreprocess_tpu_torch.utils import parity, profiling
 
     plan, cfg, geom = prep["plan"], prep["cfg"], prep["geom"]
     core = l1_to_l2.make_core(plan, cfg, geom)
@@ -1126,14 +1126,16 @@ def _spatial_case(prep, mesh, what, timed=False):
     counters = kernel_counters()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    l1_to_l2.gathered_bytes = 0
-    out = score(shards)
-    torch.cuda.synchronize()
+    profiling.reset()
+    # the recorder's counters count while a profiler records
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = score(shards)
+        torch.cuda.synchronize()
     launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     rows = launches[IPC_ROUTE_KERNEL[cfg["ipc"]]]
     res = {"mesh": [str(d) for d in mesh], "slab_rows": [r.n for r in shards.rows],
            "ipc": cfg["ipc"], "launches": launches, "ipc_rows_launches": rows,
-           "gathered_bytes": l1_to_l2.gathered_bytes}
+           "gathered_bytes": profiling.snapshot()["counters"].get("gather_bytes", 0)}
     for k in ("linearity", "block_nanmedian", IPC_ROUTE_KERNEL[cfg["ipc"]]):
         require(launches[k] >= 1, f"{what}: kernel {k} not launched")
     require(rows == len(mesh), f"{what}: {rows} row-slab IPC launches for {len(mesh)} slabs")

@@ -161,7 +161,7 @@ def load_caldir(caldir):
     return CalPack(**pack)
 
 
-_PACK_CACHE = hostcache.BoundedCache(40)
+_PACK_CACHE = hostcache.BoundedCache(40, "cal_packs")
 # one lock per CALDIR key: pool threads asking for the same CALDIR at
 # once get one pack (one set of array ids, so one device copy)
 _KEY_LOCKS = {}

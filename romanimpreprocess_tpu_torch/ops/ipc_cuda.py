@@ -44,7 +44,7 @@ about 1.40 GB at 6 groups of 4088^2 (:func:`fwd_bytes_moved`).
 import numpy as np
 import torch
 
-from ..utils import hostcache
+from ..utils import hostcache, profiling
 from ..utils.rows import Rows
 from . import cuda_build, ipc, ipc_slab
 
@@ -55,7 +55,7 @@ launches = 0
 fwd_launches = 0
 
 # each 4096^2 plane stack is 0.6 GB of host RAM: hold at most two
-_PLANES_CACHE = hostcache.BoundedCache(2)
+_PLANES_CACHE = hostcache.BoundedCache(2, "kernel_planes")
 
 
 def kernel_planes_frame(kernel, nside, nborder=4):
@@ -66,17 +66,19 @@ def kernel_planes_frame(kernel, nside, nborder=4):
     zero border is the zero-fill edge of the reference stencil: a tap
     that sources a border pixel multiplies a zero weight.  Cached per
     cal pack (id-keyed; the value holds a strong reference to
-    ``kernel`` so a recycled id cannot alias it).
+    ``kernel`` so a recycled id cannot alias it).  A cache miss is the
+    span ``host.kernel_planes``.
     """
     na = kernel.shape[-1]
     ck = (id(kernel), nside, nborder)
     hit = _PLANES_CACHE.get(ck)
     if hit is not None:
         return hit[0]
-    kp = np.zeros((9, nside, nside), np.float32)
-    kp[:, nborder : nborder + na, nborder : nborder + na] = np.asarray(
-        kernel, np.float32
-    ).reshape(9, na, na)
+    with profiling.span("host.kernel_planes"):
+        kp = np.zeros((9, nside, nside), np.float32)
+        kp[:, nborder : nborder + na, nborder : nborder + na] = np.asarray(
+            kernel, np.float32
+        ).reshape(9, na, na)
     return _PLANES_CACHE.put(ck, (kp, kernel))[0]
 
 

@@ -146,7 +146,7 @@ def _pad_geom(na, th):
 
 
 # each 4096^2 padded slab is 0.6 GB of host RAM: hold at most two
-_PAD_CACHE = hostcache.BoundedCache(2)
+_PAD_CACHE = hostcache.BoundedCache(2, "slab_pad")
 
 
 def kernel_planes_padded(kernel, th=32):

@@ -51,7 +51,7 @@ WGMMA_N1 = 256
 K1_BLOCK = 32
 
 # about 25 MB of device memory per entry at length 2^20
-_CONST_CACHE = hostcache.BoundedCache(2)
+_CONST_CACHE = hostcache.BoundedCache(2, "pink_consts")
 
 
 def flops(ntr, length):

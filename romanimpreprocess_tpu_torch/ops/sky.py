@@ -52,7 +52,7 @@ def binkxk(arr, k):
 #: device constants of the sky steps (grids, summation trees), built
 #: once per shape and device: a copy from host memory would wait for the
 #: device's queue on every call
-_CONSTS = hostcache.BoundedCache(64)
+_CONSTS = hostcache.BoundedCache(64, "sky_consts")
 
 
 def _cached(key, make):

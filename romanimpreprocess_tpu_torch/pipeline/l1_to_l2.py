@@ -16,6 +16,14 @@ host wrapper: YAML config, L1 ASDF read, CALDIR load (once), WCS
 sidecar -> pixel-area map, plan precomputation, staging onto the
 device, L2 ASDF/FITS write, process log.
 
+While a ``torch.profiler`` records, the host wrapper's steps are spans
+of :mod:`..utils.profiling` named ``host.<step>`` (``host.calibrate``,
+``host.prepare`` with ``.plan`` and ``.medgain``, ``host.stage``,
+``host.ipc_precal``, ``host.to_host``, ``host.package`` with ``.maps``,
+``.refdata`` and ``.meta``), the core's stages spans named
+``l1_to_l2.<stage>`` (:class:`StageRanges`), and the copies are counted
+(``h2d_bytes``, ``d2h_bytes``, ``gather_bytes``).
+
 The device core's stages (:func:`calibrate_rows`) take row slabs of the
 frame with their halos; :func:`make_core` runs them on the whole frame,
 :mod:`..parallel.spatial` on the slabs of a row-sharded frame.
@@ -50,7 +58,7 @@ from ..ops import (ipc, ipc_cuda, ipc_slab, likely, linearity,
                    linearity_cuda, mask, ramp, refsub, saturation, sky,
                    wcsutils)
 from ..ops.sky import full_fp32
-from ..utils import hostcache, typefix
+from ..utils import hostcache, profiling, typefix
 from ..utils.processlog import ProcessLog
 from ..utils.rows import Rows
 from . import oututils
@@ -102,9 +110,10 @@ def _wfi18_row_basis(nside, taus=WFI18_DEFAULT_TAUS):
 
 
 class StageRanges:
-    """Labels a device function's stages as ``<prefix>.<stage>`` ranges
-    for ``torch.profiler`` (a few microseconds each when no profiler
-    runs): ``stage(name)`` ends the open range and opens the next."""
+    """Labels a device function's stages as ``<prefix>.<stage>`` spans
+    (:class:`..utils.profiling.span`, one flag read each when no
+    profiler records): ``stage(name)`` ends the open span and opens the
+    next."""
 
     def __init__(self, prefix="l1_to_l2"):
         self._prefix = prefix
@@ -112,7 +121,7 @@ class StageRanges:
 
     def __call__(self, name):
         self.close()
-        self._open = torch.profiler.record_function(f"{self._prefix}.{name}")
+        self._open = profiling.span(f"{self._prefix}.{name}")
         self._open.__enter__()
 
     def close(self):
@@ -128,18 +137,12 @@ def _add_active(x, y, act):
     return out
 
 
-#: bytes the row-sharded core has concatenated across slabs (its
-#: gathers for the cross-row reductions) since the last reset
-gathered_bytes = 0
-
-
 def _gather(pieces, lead, dim=-2):
     """The pieces, in row order, as one tensor on ``lead`` (one piece is
-    returned as it is)."""
-    global gathered_bytes
+    returned as it is); the bytes go on the ``gather_bytes`` counter."""
     if len(pieces) == 1:
         return pieces[0]
-    gathered_bytes += sum(p.numel() * p.element_size() for p in pieces)
+    profiling.count("gather_bytes", sum(p.nbytes for p in pieces))
     return torch.cat([p.to(lead) for p in pieces], dim=dim)
 
 
@@ -414,7 +417,8 @@ def calibrate_rows(parts, plan, cfg, geom):
     3 x 3 saturation grow and the IPC inverse and are trimmed after it;
     what spans rows (the refpix fit and channel lines, the WFI18 fit,
     the sky) is computed once on the first slab's device from gathered
-    rows (:data:`gathered_bytes`) and sent back.  One part holding the
+    rows (counted as ``gather_bytes``, :mod:`..utils.profiling`) and
+    sent back.  One part holding the
     whole frame (``Rows(0, nside)``) is the single-SCA core of
     :func:`make_core`.  Returns one output dict per slab: its own rows,
     ``endslice`` its active rows, ``medsky`` / ``skycoefs`` the same on
@@ -521,10 +525,13 @@ def make_core(plan, cfg, geom):
 _DQ_OUTPUTS = ("pdq", "rdq")
 
 
+@profiling.span("host.to_host")
 def to_host(out):
-    """Core outputs -> numpy (DQ planes as uint32)."""
+    """Core outputs -> numpy (DQ planes as uint32), counted as
+    ``d2h_bytes``."""
     host = {}
     for k, v in out.items():
+        profiling.count("d2h_bytes", v.nbytes)
         a = v.detach().cpu().numpy()
         host[k] = a.view(np.uint32) if k in _DQ_OUTPUTS else a
     return host
@@ -536,18 +543,34 @@ def to_host(out):
 
 # device copies of cal-pack arrays, keyed by (id, device); the value
 # holds the numpy array so a recycled id cannot alias a stale entry
-_DEVICE_CACHE = hostcache.BoundedCache(64)
+_DEVICE_CACHE = hostcache.BoundedCache(64, "device_arrays")
+
+
+def _send(t, device):
+    """The host tensor ``t`` copied to ``device``, counted as ``h2d_bytes``."""
+    profiling.count("h2d_bytes", t.nbytes)
+    return t.to(device)
 
 
 def stage(a, device, cache=True):
     """A host numpy array as a tensor on ``device`` (uint32 DQ arrays
     become int32 bit patterns, uint16 counts become int32).  Cal-pack
-    arrays are staged once per device (``cache``)."""
+    arrays are staged once per device (``cache``).  A copy (not a cache
+    hit) is the span ``host.stage``."""
     ck = (id(a), str(device))
     if cache:
         hit = _DEVICE_CACHE.get(ck)
         if hit is not None:
             return hit[0]
+    with profiling.span("host.stage"):
+        t = _copy(a, device)
+    if cache:
+        _DEVICE_CACHE.put(ck, (t, a))
+    return t
+
+
+def _copy(a, device):
+    """:func:`stage`'s copy, uncached."""
     arr = np.asarray(a)
     with warnings.catch_warnings():
         # arrays read from ASDF are read-only; nothing writes to a staged
@@ -558,19 +581,16 @@ def stage(a, device, cache=True):
         elif arr.dtype == np.uint16:
             # 2 bytes per value over the bus; widened on the device
             t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-            t = t.to(device).to(torch.int32) & 0xFFFF
+            return _send(t, device).to(torch.int32) & 0xFFFF
         elif arr.dtype == np.float32:
             t = torch.from_numpy(np.ascontiguousarray(arr))
         else:
             t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
-    t = t.to(device)
-    if cache:
-        _DEVICE_CACHE.put(ck, (t, a))
-    return t
+    return _send(t, device)
 
 
 # cap 25 > the 18-SCA focal plane so per-SCA cal packs stay resident
-_IPC_PRECAL_CACHE = hostcache.BoundedCache(25)
+_IPC_PRECAL_CACHE = hostcache.BoundedCache(25, "ipc_precal")
 
 
 def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
@@ -585,7 +605,8 @@ def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
 
     Returns ``(dark_slope_ipc, flat_ipc)``, active-region (na, na)
     float32 tensors on ``device``: unclipped gain for the dark slope,
-    gain clipped to >= 0.1 for the flat.
+    gain clipped to >= 0.1 for the flat.  A cache miss is the span
+    ``host.ipc_precal``.
     """
     nb = nborder
     device = torch.device(device)
@@ -593,23 +614,24 @@ def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
     hit = _IPC_PRECAL_CACHE.get(ck)
     if hit is not None:
         return hit[0]
-    gain_act = np.asarray(gain[nb:-nb, nb:-nb], np.float32)
-    gain_flat = np.clip(gain_act, 0.1, None)
-    flat_clipped = np.clip(
-        np.asarray(flat[nb:-nb, nb:-nb], np.float32), 0.1, 10.0
-    )
-    dslope_act = np.asarray(dark_slope[nb:-nb, nb:-nb], np.float32)
-    stacked = np.stack([dslope_act * gain_act, flat_clipped * gain_flat])
-    corr = ipc.ipc_rev(torch.from_numpy(stacked).to(device),
-                       stage(ipc_kernel, device))
-    out = (corr[0] / torch.from_numpy(gain_act).to(device),
-           corr[1] / torch.from_numpy(gain_flat).to(device))
+    with profiling.span("host.ipc_precal"):
+        gain_act = np.asarray(gain[nb:-nb, nb:-nb], np.float32)
+        gain_flat = np.clip(gain_act, 0.1, None)
+        flat_clipped = np.clip(
+            np.asarray(flat[nb:-nb, nb:-nb], np.float32), 0.1, 10.0
+        )
+        dslope_act = np.asarray(dark_slope[nb:-nb, nb:-nb], np.float32)
+        stacked = np.stack([dslope_act * gain_act, flat_clipped * gain_flat])
+        corr = ipc.ipc_rev(_send(torch.from_numpy(stacked), device),
+                           stage(ipc_kernel, device))
+        out = (corr[0] / _send(torch.from_numpy(gain_act), device),
+               corr[1] / _send(torch.from_numpy(gain_flat), device))
     return _IPC_PRECAL_CACHE.put(
         ck, (out, (flat, dark_slope, gain, ipc_kernel))
     )[0]
 
 
-_WCS_CACHE = hostcache.BoundedCache(65)
+_WCS_CACHE = hostcache.BoundedCache(65, "wcs")
 
 
 def wcs_from_config(config):
@@ -618,13 +640,13 @@ def wcs_from_config(config):
     if "FITSWCS" not in config:
         return None
     path = config["FITSWCS"]
-    mt = os.path.getmtime(path)
-    hit = _WCS_CACHE.get(path)
-    if hit is not None and hit[0] == mt:
-        return hit[1]
+    key = (path, os.path.getmtime(path))
+    hit = _WCS_CACHE.get(key)
+    if hit is not None:
+        return hit
     with open(path) as f:
         hdr = fits_lite.Header.fromstring(f.read())
-    return _WCS_CACHE.put(path, (mt, hdr))[1]
+    return _WCS_CACHE.put(key, hdr)
 
 
 def calibrateimage(config, verbose=False, return_arrays=False, device=None):
@@ -672,6 +694,7 @@ def area_factor_from_config(config, nside):
     return (wcsutils.pixelarea(w, N=nside) / pars.Omega_ideal).astype(np.float32)
 
 
+@profiling.span("host.calibrate")
 def calibrate_tree(l1, config, pack, area_factor=None, verbose=False,
                    device=None):
     """Calibrate an in-memory L1 tree; return (L2 tree, core outputs as
@@ -713,6 +736,7 @@ def _guide_window_rows(l1meta, config, nside, expand=1):
     return rows
 
 
+@profiling.span("host.prepare")
 def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     """Host-side preparation: plan, static cfg, and the array bundle for
     one SCA, staged onto ``device`` (default ``cuda``).  Returns a dict;
@@ -776,9 +800,10 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
             k: jump_kw.pop(k)
             for k in ("nu", "u_min", "u_max") if k in jump_kw
         }
-        plan = likely.build_likely_plan(
-            meta, exclude_first, rejection_threshold=rej, **plan_kw
-        )
+        with profiling.span("host.prepare.plan"):
+            plan = likely.build_likely_plan(
+                meta, exclude_first, rejection_threshold=rej, **plan_kw
+            )
         if jump_kw:
             mylog.append(
                 "JUMP_KW keys ignored by the internal likelihood "
@@ -787,9 +812,10 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         mylog.append("likelihood (adaptive-weight) ramp fit\n")
         weights_out = plan.W[plan.nu // 2, -1]
     else:
-        plan = ramp.build_plan(
-            meta, u_, exclude_first, config.get("JUMP_DETECT_PARS")
-        )
+        with profiling.span("host.prepare.plan"):
+            plan = ramp.build_plan(
+                meta, u_, exclude_first, config.get("JUMP_DETECT_PARS")
+            )
         mylog.append(f"\n\nRamp fit optimized for u = {u_:11.5E} s**-1\n")
         mylog.append("weights = {}\n".format(plan.W[-1]))
         weights_out = plan.W[-1]
@@ -863,9 +889,9 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         return stage(a, device, cache=False)
 
     arr = {
-        "opt_slope": torch.tensor(
+        "opt_slope": _send(torch.tensor(
             float(np.float32(opt_slope if opt_slope is not None else 0.0)),
-            dtype=torch.float32, device=device),
+            dtype=torch.float32), device),
         "data": exp(data).to(torch.float32),
         "amp33": (
             exp(l1["amp33"]).to(torch.float32) if "amp33" in l1
@@ -924,7 +950,8 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     mylog.append("Saturation check complete\n")
     mylog.append("Linearity correction complete\n")
     mylog.append("Dark current subtracted\n")
-    medgain = float(np.median(pack.gain))
+    with profiling.span("host.prepare.medgain"):
+        medgain = float(np.median(pack.gain))
     mylog.append(f"median gain = {medgain:8.5f} e/DN\n")
 
     return dict(
@@ -936,9 +963,12 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     )
 
 
+@profiling.span("host.package")
 def package_tree(out, prep, l1, config):
     """Package the core's host outputs (:func:`to_host`) into the L2
-    ASDF tree."""
+    ASDF tree: the maps (span ``host.package.maps``), the reference
+    pixels (``host.package.refdata``) and the metadata
+    (``host.package.meta``)."""
     nside, nborder, _ = prep["geom"]
     nb = nborder
     ngrp = np.asarray(l1["data"]).shape[0]
@@ -948,6 +978,9 @@ def package_tree(out, prep, l1, config):
     skyorder = prep["cfg"]["skyorder"]
     has_dark_decay = prep["has_dark_decay"]
     wfi18 = prep["wfi18"]
+    sliceout = config.get("SLICEOUT", False)
+    if sliceout and ngrp >= 128:
+        raise ValueError("too many groups")
 
     slope = out["slope"]
     pdq = out["pdq"]
@@ -955,78 +988,81 @@ def package_tree(out, prep, l1, config):
     sep = out["slope_err_poisson"]
 
     act = slice(nb, nside - nb)
-    err = np.hypot(ser, sep).astype(np.float32)
+    with profiling.span("host.package.maps"):
+        err = np.hypot(ser, sep).astype(np.float32)
+        maps = {
+            "data": np.asarray(slope[act, act], np.float32),
+            "dq": np.asarray(pdq[act, act], np.uint32),
+            "err": err[act, act],
+            "var_poisson": np.asarray(sep[act, act] ** 2, np.float32),
+            "var_rnoise": np.asarray(ser[act, act] ** 2, np.float32),
+            "var_flat": np.zeros((nside - 2 * nb, nside - 2 * nb), np.float16),
+            "data_withsky": np.asarray(out["slope_withsky"][act, act], np.float32),
+        }
+        likely_maps = {}
+        if "dumo" in out:
+            likely_maps["dumo"] = np.asarray(out["dumo"][act, act], np.float16)
+            likely_maps["chisq"] = np.asarray(out["chisq"][act, act], np.float16)
+        if sliceout:
+            endslice = np.asarray(out["endslice"], np.int8)
 
-    # the L2 product carries the WCS of the active-region science frame
-    # (0-based CRPIX, as sim_to_l1 writes the sidecar)
-    thewcs = wcs_from_config(config)
-    wcsinfo = None
-    if thewcs is not None:
-        w = wcsutils.SIPWCS.from_header(thewcs, zero_based=True)
-        wcsinfo = dict(
-            w.to_cards(),
-            pixel_convention="0-based, active region",
-            ra_ref=float(w.crval[0]),
-            dec_ref=float(w.crval[1]),
-        )
+    with profiling.span("host.package.meta"):
+        # the L2 product carries the WCS of the active-region science frame
+        # (0-based CRPIX, as sim_to_l1 writes the sidecar)
+        thewcs = wcs_from_config(config)
+        wcsinfo = None
+        if thewcs is not None:
+            w = wcsutils.SIPWCS.from_header(thewcs, zero_based=True)
+            wcsinfo = dict(
+                w.to_cards(),
+                pixel_convention="0-based, active region",
+                ra_ref=float(w.crval[0]),
+                dec_ref=float(w.crval[1]),
+            )
 
-    l2meta = {
-        "exposure": dict(l1meta["exposure"]),
-        "instrument": dict(l1meta.get("instrument", {})),
-        "cal_step": oututils.cal_step_status(
-            has_dark_decay, wfi18,
-            config.get("correct_wfi18_transient", False),
-            has_wcs=wcsinfo is not None,
-        ),
-        "gain": medgain,
-    }
-    if wcsinfo is not None:
-        l2meta["wcsinfo"] = wcsinfo
-        if "pointing" in l1meta:
-            l2meta["pointing"] = dict(l1meta["pointing"])
-    oututils.add_in_provenance(l2meta)
+        l2meta = {
+            "exposure": dict(l1meta["exposure"]),
+            "instrument": dict(l1meta.get("instrument", {})),
+            "cal_step": oututils.cal_step_status(
+                has_dark_decay, wfi18,
+                config.get("correct_wfi18_transient", False),
+                has_wcs=wcsinfo is not None,
+            ),
+            "gain": medgain,
+        }
+        if wcsinfo is not None:
+            l2meta["wcsinfo"] = wcsinfo
+            if "pointing" in l1meta:
+                l2meta["pointing"] = dict(l1meta["pointing"])
+        oututils.add_in_provenance(l2meta)
 
-    im2 = {
-        "meta": l2meta,
-        "data": np.asarray(slope[act, act], np.float32),
-        "dq": np.asarray(pdq[act, act], np.uint32),
-        "err": err[act, act],
-        "var_poisson": np.asarray(sep[act, act] ** 2, np.float32),
-        "var_rnoise": np.asarray(ser[act, act] ** 2, np.float32),
-        "var_flat": np.zeros((nside - 2 * nb, nside - 2 * nb), np.float16),
-        "data_withsky": np.asarray(out["slope_withsky"][act, act], np.float32),
-    }
+        processinfo = {
+            "medsky": float(out["medsky"]),
+            "medgain": medgain,
+            "skyorder": skyorder,
+            "skycoefs": np.asarray(out["skycoefs"], np.float32),
+            "ramp_opt_pars": prep["uopt"],
+            "reffiles": _jsonable(config.get("CALDIR", {})),
+            "meta": {
+                "ngrp": meta["ngrp"],
+                "N": meta["N"].astype(np.int16),
+                "tbar": meta["tbar"].astype(np.float32),
+                "tau": meta["tau"].astype(np.float32),
+                "frame_time": prep["frame_time"],
+                "read_pattern": prep["read_pattern"],
+                "nborder": nborder,
+            },
+            "weights": prep["weights_out"],
+            "config": _jsonable(config),
+            "log": prep["log"],
+            "exclude_first": prep["exclude_first"],
+        }
+        if sliceout:
+            processinfo["endslice"] = endslice
+
+    im2 = {"meta": l2meta, **maps}
     oututils.add_in_ref_data(im2, l1, pdq, nside, nb)
-    if "dumo" in out:
-        im2["dumo"] = np.asarray(out["dumo"][act, act], np.float16)
-        im2["chisq"] = np.asarray(out["chisq"][act, act], np.float16)
-
-    processinfo = {
-        "medsky": float(out["medsky"]),
-        "medgain": medgain,
-        "skyorder": skyorder,
-        "skycoefs": np.asarray(out["skycoefs"], np.float32),
-        "ramp_opt_pars": prep["uopt"],
-        "reffiles": _jsonable(config.get("CALDIR", {})),
-        "meta": {
-            "ngrp": meta["ngrp"],
-            "N": meta["N"].astype(np.int16),
-            "tbar": meta["tbar"].astype(np.float32),
-            "tau": meta["tau"].astype(np.float32),
-            "frame_time": prep["frame_time"],
-            "read_pattern": prep["read_pattern"],
-            "nborder": nborder,
-        },
-        "weights": prep["weights_out"],
-        "config": _jsonable(config),
-        "log": prep["log"],
-        "exclude_first": prep["exclude_first"],
-    }
-    if config.get("SLICEOUT", False):
-        if ngrp >= 128:
-            raise ValueError("too many groups")
-        processinfo["endslice"] = np.asarray(out["endslice"], np.int8)
-
+    im2.update(likely_maps)
     return {"roman": im2, "processinfo": processinfo}
 
 

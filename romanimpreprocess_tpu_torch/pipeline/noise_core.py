@@ -41,12 +41,13 @@ import torch
 from ..config import layer_subscript, resolve_contract_backend
 from ..galpoisson import draw_from_pearson_torch, get_tilde_nus
 from ..ops import sky
+from ..utils import profiling
 from . import l1_to_l2, noise, sim_to_l1
 from .noise import O_STREAM, P_STREAM, R_STREAM, layer_stream
 
-#: ``torch.profiler`` ranges: ``noise.base`` (the base core) and
-#: ``noise.layer<i>`` (layer i; the first layer that needs the dark
-#: reference computes it); a few microseconds each when no profiler runs
+#: spans (:class:`..utils.profiling.span`): ``noise.base`` (the base
+#: core) and ``noise.layer<i>`` (layer i; the first layer that needs the
+#: dark reference computes it); one flag read each when no profiler records
 PREFIX = "noise"
 
 
@@ -258,7 +259,7 @@ def _run_layers(st, layers, seed, arrs0, base, data):
     dark = None
     diffs = []
     for i_noise, cmd in enumerate(layers):
-        with torch.profiler.record_function(f"{PREFIX}.layer{i_noise}"):
+        with profiling.span(f"{PREFIX}.layer{i_noise}"):
             comps = [c for c in "ROP" if c in cmd]
             s_ord = int("0" + layer_subscript(cmd, "S")) if "S" in cmd else None
             # a single-component 'R' or 'P' layer applies its trailing 'S'
@@ -343,7 +344,7 @@ def make_staged_noise_runner(prep, pack, layers, config=None, mesh=None):
     st = _Stages(prep, pack, config)
 
     def run(seed, arrs):
-        with torch.profiler.record_function(f"{PREFIX}.base"):
+        with profiling.span(f"{PREFIX}.base"):
             base = st.core_base(arrs)
         return _finish(_run_layers(st, layers, seed, arrs, base, arrs["data"]), base)
 
@@ -368,7 +369,7 @@ def make_staged_exposure_runner(prep, pack, layers, config=None, mesh=None):
 
     def run(seed, arrs):
         arrs0 = st.simulate(seed, arrs)
-        with torch.profiler.record_function(f"{PREFIX}.base"):
+        with profiling.span(f"{PREFIX}.base"):
             base = st.core_base(arrs0)
         return _finish(_run_layers(st, layers, seed, arrs0, base, arrs0["data"]), base)
 

@@ -9,11 +9,14 @@ software provenance.
 import numpy as np
 
 from .. import __version__
+from ..utils import profiling
 
 
+@profiling.span("host.package.refdata")
 def add_in_ref_data(rstruct, l1, pdq, nside, nborder):
     """Copy amp33 + 4-pixel border reference data and flags into the L2
-    tree (reference ``oututils.add_in_ref_data:19-55``)."""
+    tree (reference ``oututils.add_in_ref_data:19-55``; the span
+    ``host.package.refdata``)."""
     nb = nborder
     data = np.asarray(l1["data"])
     if "amp33" in l1:

@@ -62,7 +62,7 @@ from ..dqflags import group as gdq
 from ..dqflags import i32
 from ..io import asdf_lite, calfiles, fits_lite
 from ..ops import contract_cuda, ipc, ipc_cuda, linearity, pink, ramp, rand, wcsutils
-from ..utils import skymodel, typefix
+from ..utils import profiling, skymodel, typefix
 from .l1_to_l2 import StageRanges, stage
 
 # Cosmic-ray model: flux [hits/cm^2/s] x pixel area [cm^2], log-normal
@@ -124,7 +124,7 @@ class IL:
         act = slice(nb, ny - nb) if nb else slice(None)
         x = counts_e + self.start_e
         if self.ipc_kernel is not None:
-            with torch.profiler.record_function(f"{_PREFIX}.ipc_fwd"):
+            with profiling.span(f"{_PREFIX}.ipc_fwd"):
                 if self.ipc_backend == "cuda" and x.ndim == 3:
                     x = ipc_cuda.ipc_fwd_cube(x.contiguous(), self.ipc_kernel)
                 else:
@@ -134,7 +134,7 @@ class IL:
             self.lin.smax[act, act], self.lin.sref[act, act],
             self.lin.dq[act, act],
         )
-        with torch.profiler.record_function(f"{_PREFIX}.inv_linearity"):
+        with profiling.span(f"{_PREFIX}.inv_linearity"):
             S, _ = linearity.invert_linearity(x / self.gain[act, act], lin_act)
         return S
 
@@ -537,7 +537,7 @@ class Image2D:
             nborder=nb,
             pink_backend=resolve_backend(config, "PINK_BACKEND", device),
         )
-        with torch.profiler.record_function(f"{_PREFIX}.to_host"):
+        with profiling.span(f"{_PREFIX}.to_host"):
             im_u16 = u16_to_host(im)
             amp33_u16 = u16_to_host(amp33) if amp33 is not None else None
             l1dq = l1dq.cpu().numpy().view(np.uint32)

@@ -8,10 +8,16 @@ from several threads, evict-oldest without
 clearing live entries, and (for id-keyed caches) strong references to
 the keyed objects held in the value so a GC'd array can't alias a
 recycled ``id``.  One implementation here so a concurrency fix can't
-miss a copy.
+miss a copy.  Each cache is named, and counts its lookups as
+``cache.<name>.hit`` / ``cache.<name>.miss`` (:func:`.profiling.count`,
+while a profiler records).
 """
 
 import threading
+
+from . import profiling
+
+_MISSING = object()
 
 
 class BoundedCache:
@@ -26,14 +32,20 @@ class BoundedCache:
     have emptied.
     """
 
-    def __init__(self, capacity):
+    def __init__(self, capacity, name):
         self.capacity = int(capacity)
+        self._hit, self._miss = f"cache.{name}.hit", f"cache.{name}.miss"
         self._d = {}
         self._lock = threading.Lock()
 
     def get(self, key, default=None):
         with self._lock:
-            return self._d.get(key, default)
+            v = self._d.get(key, _MISSING)
+        if v is _MISSING:
+            profiling.count(self._miss)
+            return default
+        profiling.count(self._hit)
+        return v
 
     def put(self, key, value):
         with self._lock:

@@ -1,26 +1,156 @@
-"""Profiling hooks.
+"""Profiling: one recorder of named spans and counters, and the trace.
 
-- :func:`trace` — context manager around ``torch.profiler`` writing a
+- :func:`span` — a context manager (or decorator) around one step of the
+  program.  While a ``torch.profiler`` records, it opens a
+  ``torch.profiler.record_function`` range of the same name, so the step
+  lands in the profiler's trace on the clock of the device's events, and
+  adds to the recorder, per name: the count, the wall time, the self
+  time (the wall time less that of the spans opened inside it on the
+  same thread), and the calling thread's minor page faults and system
+  CPU time (``getrusage``; a sandboxed kernel may count no faults).
+  While no profiler records, a span reads one flag and does nothing
+  else.
+- :func:`count` — adds to a named counter, under the same gate.
+- :func:`snapshot` / :func:`reset` — what the recorder holds, and
+  clearing it.
+- :func:`trace` — a context manager around ``torch.profiler`` writing a
   Chrome trace (``trace.json``, for ``chrome://tracing`` or Perfetto)
-  of any pipeline section, with the card's kernels where there is one.
-- :class:`StageTimer` — host-side wall-clock stage accounting that
-  lands in the ProcessLog / the L2 ``processinfo`` tree.
+  and the recorder's :func:`snapshot` of the body (``spans.json``).
+
+The counters the program keeps: ``h2d_bytes`` (host -> device copies of
+the L1 -> L2 host driver), ``d2h_bytes`` (its copies back),
+``gather_bytes`` (rows the row-sharded core concatenates across slabs),
+``cache.<name>.hit`` / ``cache.<name>.miss`` (the lookups of each
+:class:`.hostcache.BoundedCache`).
 """
 
 import contextlib
+import functools
+import json
 import os
+import resource
+import threading
 import time
 
 import torch
 
 TRACE_FILE = "trace.json"
+SPANS_FILE = "spans.json"
+
+_autograd_profiler = torch.autograd.profiler
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+
+    def recording():
+        """True while a ``torch.profiler`` records."""
+        return _autograd_profiler._is_profiler_enabled
+
+else:  # pragma: no cover - torch builds without the Python flag
+    recording = torch._C._autograd._profiler_enabled
+
+_RUSAGE = getattr(resource, "RUSAGE_THREAD", resource.RUSAGE_SELF)
+_LOCK = threading.Lock()
+_LOCAL = threading.local()
+#: name -> [count, total s, self s, minor faults, system CPU s]
+_SPANS = {}
+_COUNTERS = {}
+
+
+def _open_spans():
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+class span:
+    """``with span(name): ...`` or ``@span(name)``: one recorded step.
+
+    Nested spans on one thread give their parent its self time; the
+    parent is the innermost span still open when the child closes.
+    """
+
+    __slots__ = ("name", "_range", "_t0", "_ru0", "_child")
+
+    def __init__(self, name):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if not recording():
+            return self
+        _open_spans().append(self)
+        self._child = 0.0
+        self._ru0 = resource.getrusage(_RUSAGE)
+        self._t0 = time.perf_counter()
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        rf = self._range
+        if rf is None:
+            return False
+        self._range = None
+        rf.__exit__(*exc)
+        dt = time.perf_counter() - self._t0
+        ru = resource.getrusage(_RUSAGE)
+        stack = _open_spans()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:  # an inner span left open by an exception
+            stack.remove(self)
+        if stack:
+            stack[-1]._child += dt
+        with _LOCK:
+            rec = _SPANS.setdefault(self.name, [0, 0.0, 0.0, 0, 0.0])
+            rec[0] += 1
+            rec[1] += dt
+            rec[2] += dt - self._child
+            rec[3] += ru.ru_minflt - self._ru0.ru_minflt
+            rec[4] += ru.ru_stime - self._ru0.ru_stime
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return spanned
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name`` while a profiler records."""
+    if recording():
+        with _LOCK:
+            _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def snapshot():
+    """``{"spans": {name: {count, total_ms, self_ms, minflt, sys_ms}},
+    "counters": {name: n}}`` since the last :func:`reset`."""
+    with _LOCK:
+        spans = {k: {"count": c, "total_ms": 1e3 * t, "self_ms": 1e3 * s, "minflt": f,
+                     "sys_ms": 1e3 * y}
+                 for k, (c, t, s, f, y) in _SPANS.items()}
+        return {"spans": spans, "counters": dict(_COUNTERS)}
+
+
+def reset():
+    """Clear every span's and counter's record."""
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTERS.clear()
 
 
 @contextlib.contextmanager
 def trace(log_dir, create_perfetto_link=False):
     """Profile the body with ``torch.profiler`` (the CPU, and CUDA when a
-    GPU is present) and write its Chrome trace to
-    ``log_dir/trace.json``, also when the body raises.  Yields the
+    GPU is present) and write its Chrome trace to ``log_dir/trace.json``
+    and the recorder's :func:`snapshot` of the body (reset at the start)
+    to ``log_dir/spans.json``, also when the body raises.  Yields the
     profiler (``key_averages()`` and the rest).  ``create_perfetto_link``
     is accepted for the JAX package's signature and does nothing."""
     from torch.profiler import ProfilerActivity, profile
@@ -29,6 +159,7 @@ def trace(log_dir, create_perfetto_link=False):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    reset()
     prof = profile(activities=activities)
     prof.start()
     try:
@@ -36,25 +167,5 @@ def trace(log_dir, create_perfetto_link=False):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
-
-
-class StageTimer:
-    """Accumulates named stage wall-clock durations."""
-
-    def __init__(self, mylog=None):
-        self.stages = {}
-        self._mylog = mylog
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        t0 = time.monotonic()
-        try:
-            yield
-        finally:
-            dt = time.monotonic() - t0
-            self.stages[name] = self.stages.get(name, 0.0) + dt
-            if self._mylog is not None:
-                self._mylog.append(f"[timing] {name}: {dt * 1e3:.1f} ms\n")
-
-    def summary(self):
-        return dict(self.stages)
+        with open(os.path.join(log_dir, SPANS_FILE), "w") as f:
+            json.dump(snapshot(), f, indent=1, sort_keys=True)

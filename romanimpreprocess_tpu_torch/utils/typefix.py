@@ -10,11 +10,15 @@ downstream consumer requires it.
 
 import numpy as np
 
+from . import profiling
+
 VAR_FIELDS = ("err", "var_poisson", "var_rnoise", "var_flat")
 
 
+@profiling.span("host.typefix")
 def fix(tree, demote_var_to_f16=False):
-    """Normalize an L2 tree in place for schema compatibility.
+    """Normalize an L2 tree in place for schema compatibility (the span
+    ``host.typefix``).
 
     Parameters
     ----------

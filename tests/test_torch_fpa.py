@@ -349,7 +349,7 @@ def test_bounded_cache_under_threads():
 
     from romanimpreprocess_tpu_torch.utils import hostcache
 
-    cache = hostcache.BoundedCache(4)
+    cache = hostcache.BoundedCache(4, "test")
     errors = []
 
     def hammer(t):

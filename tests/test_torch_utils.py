@@ -140,15 +140,6 @@ def test_profiling_trace_writes_a_chrome_trace(tmp_path):
     assert os.path.exists(tmp_path / "err" / profiling.TRACE_FILE)
 
 
-def test_stage_timer():
-    log = []
-    t = profiling.StageTimer(log)
-    for _ in range(2):
-        with t.stage("a"):
-            pass
-    assert set(t.summary()) == {"a"} and len(log) == 2
-
-
 # ---- the derived sky gate (parity.sky_bounds) ----
 
 NA = 120

@@ -631,6 +631,25 @@ def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
     )[0]
 
 
+# cap 25 > the 18-SCA focal plane so per-SCA cal packs stay resident
+_MEDGAIN_CACHE = hostcache.BoundedCache(25, "medgain")
+
+
+def median_gain(gain):
+    """The cal pack's median gain (e/DN), ``float(np.median(gain))``, for
+    the L2 metadata (``meta.gain``, ``processinfo.medgain``).
+
+    Worked out once per gain array: the cache is keyed by ``id(gain)``
+    and its value holds the array, so a recycled id cannot alias.  As
+    for :func:`stage` and :func:`ipc_precal`, a cal pack's arrays must
+    not be written in place.
+    """
+    hit = _MEDGAIN_CACHE.get(id(gain))
+    if hit is not None:
+        return hit[0]
+    return _MEDGAIN_CACHE.put(id(gain), (float(np.median(gain)), gain))[0]
+
+
 _WCS_CACHE = hostcache.BoundedCache(65, "wcs")
 
 
@@ -951,7 +970,7 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     mylog.append("Linearity correction complete\n")
     mylog.append("Dark current subtracted\n")
     with profiling.span("host.prepare.medgain"):
-        medgain = float(np.median(pack.gain))
+        medgain = median_gain(pack.gain)
     mylog.append(f"median gain = {medgain:8.5f} e/DN\n")
 
     return dict(

@@ -1,8 +1,8 @@
 """Bounded, thread-safe host-side caches.
 
 Several host paths memoize expensive per-cal-pack work: the IPC-precal
-planes and WCS sidecars (:mod:`..pipeline.l1_to_l2`), the border-zeroed
-IPC kernel planes (:mod:`..ops.ipc_cuda`), loaded CalPacks
+planes, the median gain and WCS sidecars (:mod:`..pipeline.l1_to_l2`),
+the border-zeroed IPC kernel planes (:mod:`..ops.ipc_cuda`), loaded CalPacks
 (:mod:`..io.calfiles`).  They share subtle requirements — safe to call
 from several threads, evict-oldest without
 clearing live entries, and (for id-keyed caches) strong references to

@@ -5,6 +5,7 @@ substrate the port keeps its own copies of (config codecs, CALDIR
 loading, synthetic calibration files).
 """
 
+import dataclasses
 import os
 import pkgutil
 import re
@@ -232,6 +233,30 @@ def test_prepare_inputs_stages_on_device_and_caches(small):
     assert a["arr"]["mask_dq"].dtype == torch.int32
     np.testing.assert_array_equal(a["arr"]["mask_dq"].numpy().view(np.uint32), pack.mask_dq)
     np.testing.assert_array_equal(a["arr"]["data"].numpy(), np.asarray(l1["data"], np.float32))
+
+
+def test_prepare_inputs_works_out_the_median_gain_once_a_pack(small, monkeypatch):
+    d, caldir = small
+    l1 = asdf_lite.open(d + "/L1.asdf")["roman"]
+    loaded = calfiles.load_caldir(caldir)
+    pack = dataclasses.replace(loaded, gain=loaded.gain.copy())  # a gain no call has seen
+    want = float(np.median(pack.gain))
+    median, seen = np.median, []
+
+    def counted(a, *args, **kwargs):
+        seen.append(a)
+        return median(a, *args, **kwargs)
+
+    monkeypatch.setattr(np, "median", counted)
+    cfg = {"CALDIR": caldir}
+    got = [l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")["medgain"] for _ in range(2)]
+    assert [np.float64(g).tobytes() for g in got] == [np.float64(want).tobytes()] * 2
+    assert sum(a is pack.gain for a in seen) == 1
+    changed = dataclasses.replace(pack, gain=pack.gain * np.float32(1.5))
+    again = l1_to_l2.prepare_inputs(l1, cfg, changed, device="cpu")["medgain"]
+    assert sum(a is changed.gain for a in seen) == 1
+    assert np.float64(again).tobytes() == np.float64(median(changed.gain)).tobytes()
+    assert again != want
 
 
 # --------------------------------------------------------------------------

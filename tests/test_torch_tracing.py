@@ -221,6 +221,12 @@ def test_two_calls_count_cache_misses_on_the_first_call_only(two_calls):
         assert second.get(f"cache.{name}.hit", 0) > 0, name
     # the IPC kernel is staged inside the precal, looked up on a miss only
     assert first["cache.device_arrays.miss"] == second["cache.device_arrays.hit"] + 1
+    # the median gain: worked out on the first call only, its span open on every call
+    snap = two_calls.snaps[-1]
+    calls = snap["spans"]["host.calibrate"]["count"]
+    assert first["cache.medgain.miss"] == snap["counters"]["cache.medgain.miss"] == 1
+    assert snap["counters"]["cache.medgain.hit"] == calls - 1
+    assert snap["spans"]["host.prepare.medgain"]["count"] == calls
 
 
 def test_two_calls_count_the_bytes_staged_and_read_back(two_calls):

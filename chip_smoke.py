@@ -8,12 +8,14 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit; the kernels are built from
    ``romanimpreprocess_tpu_torch/csrc`` into ``build/torch_ext/``.
 2. kernels: each hand-written CUDA kernel (linearity, block nanmedian,
-   forward IPC, pink-noise transform, read contraction, and the
+   forward IPC, pink-noise transform, read contraction, the bisection
+   inverse of the linearity, and the
    row-streaming IPC inverse: in the slab order behind its three entry
    points, blocked, streaming, fused full frame, and in the Neumann
    order as the frame inverse of the auto route) against its plain
    PyTorch version on the card, at the main paths' shapes (4096^2 x 6
-   groups; the 4088^2 active frame; 14 reads; 102 transforms of 2^20)
+   groups; the 4088^2 active frame; 14 reads; 102 transforms of 2^20;
+   the inverse at 8 x 4088^2 with 7 coefficients, the production lane's)
    and at small ragged shapes that take every size branch (the block
    nanmedian's clusters of 1, 2, 4 and 8 CTAs and its streaming kernel,
    on noise and on duplicates, signed zeros and infinities; the pink
@@ -78,7 +80,7 @@ Phases, each printing one JSON line:
    ``xla``); the warm core timed and profiled.
 7. main path, sim -> L1: a 4088^2 truth scene and the same CALDIR
    through ``sim_to_l1.run_config`` on ``cuda`` (6 groups, 14 reads;
-   ``IPC_BACKEND``/``PINK_BACKEND`` ``auto``, ``CONTRACT_BACKEND:
+   ``IPC_BACKEND``/``LIN_BACKEND``/``PINK_BACKEND`` ``auto``, ``CONTRACT_BACKEND:
    pallas``), launch counts read around that run; the L1 file checked
    and fed to ``calibrateimage`` (slope recovery, CR envelope and
    recall); the same seed again with every backend ``xla``/``dot`` and
@@ -200,7 +202,7 @@ def cuda_ms(fn, runs=10, warmup=2):
 #: (B) is ipc_slab_kernel<G, NeumannOrder>, the slab entries (4-6)
 #: ipc_slab_kernel<G, SlabOrder>
 L2_KERNEL_NAMES = ("linearity_kernel", "NeumannOrder", "block_nanmedian", "SlabOrder")
-SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_", "contract_kernel")
+SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_", "contract_kernel", "invlin_kernel")
 NOISE_KERNEL_NAMES = L2_KERNEL_NAMES + ("pink_", "contract_kernel")
 #: the port's ``torch.profiler`` ranges (``l1_to_l2.StageRanges`` and the
 #: noise runner's), whose copies on the GPU timeline are not kernels
@@ -609,6 +611,59 @@ def check_ipc_fwd(ngrp, na, gen, dev, timed, card):
     return res
 
 
+def check_invlin(ngrp, nside, nb, ncoef, gen, dev, timed, card):
+    """Kernel D against ``(x / gain)`` -> ``linearity.invert_linearity``
+    on the active window, S and exflag bit for bit: full-frame cal planes
+    (smin about 5000, smax 56000-66000, the linear term their half span,
+    small higher orders), x from below the range to above it so that z
+    reaches both domain edges."""
+    import torch
+
+    from romanimpreprocess_tpu_torch.ops import invlin_cuda, linearity
+
+    def rand(*s):
+        return torch.rand(s, generator=gen, device=dev)
+
+    na = nside - 2 * nb
+    act = slice(nb, nside - nb)
+    smin = 4500.0 + 1000.0 * rand(nside, nside)
+    smax = 56000.0 + 10000.0 * rand(nside, nside)
+    coefs = (rand(ncoef, nside, nside) - 0.5) * 10.0
+    coefs[0] = 0.5 * (smax - smin) - 300.0
+    if ncoef > 1:
+        coefs[1] = 0.5 * (smax - smin)
+    gain = 1.4 + 0.2 * rand(nside, nside)
+    lin = linearity.LinearityData(coefs.contiguous(), smin, smax, smin + 300.0,
+                                  torch.zeros((nside, nside), dtype=torch.int32,
+                                              device=dev))
+    lin_act = linearity.LinearityData(*(a[..., act, act] for a in lin))
+    x = (rand(ngrp, na, na) * 73000.0 - 3000.0) * gain[act, act]
+
+    def plain():
+        return linearity.invert_linearity(x / gain[act, act], lin_act)
+
+    got, ex_got = invlin_cuda.invert_linearity_fused(x, gain, lin)
+    ref, ex_ref = plain()
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    require(torch.equal(got, ref) and torch.equal(ex_got, ex_ref),
+            f"invert_linearity {ngrp}x{na}^2, {ncoef} coefficients: not bit-identical "
+            f"(max err {err})")
+    z = (got - lin_act.smin) / (lin_act.smax - lin_act.smin) * 2 - 1
+    require(z.min().item() < -1 + 1e-5 and z.max().item() > 1 - 1e-5,
+            f"invert_linearity {ngrp}x{na}^2: z did not reach both domain edges")
+    res = {"shape": [ngrp, na, na], "ncoef": ncoef, "max_abs_err": err, "bit_exact": True}
+    if timed:
+        res["ms"] = cuda_ms(lambda: invlin_cuda.invert_linearity_fused(x, gain, lin))
+        res["plain_ms"] = cuda_ms(plain, runs=3, warmup=1)
+        res["library_ms"] = None  # no single PyTorch call computes it
+        # no FMA: each operation is one instruction, half the F32 peak
+        res["bound_ms"], res["bound_by"] = bound(
+            invlin_cuda.bytes_moved(ngrp, na, ncoef), invlin_cuda.flops(ngrp, na, ncoef),
+            card, ops_rate=F32_RATE / 2)
+    return res
+
+
 def check_ipc_slab(ngrp, na, gen, dev, timed, card, with_gain=True, padded=True,
                    th=32):
     """The slab-layout IPC inverse's entry points on one input: the
@@ -790,14 +845,19 @@ KERNELS = {
     "correct_cube_fused": dict(
         route="cuda", source="romanimpreprocess_tpu_torch/csrc/ipc_slab.cu",
         replaces="romanimpreprocess_tpu/ops/ipc_pallas.py:335"),
+    # kernel D: no Pallas kernel; XLA fuses the JAX package's loop
+    "invert_linearity": dict(
+        route="cuda", source="romanimpreprocess_tpu_torch/csrc/invlin.cu",
+        replaces="none (XLA-fused romanimpreprocess_tpu/ops/linearity.py:107)"),
 }
 SLAB_KERNELS = ("ipc_rev2_cube_blocked", "ipc_rev2_cube_stream", "correct_cube_fused")
 
 
 def kernel_counters():
     """(module, counter attribute) of every kernel in :data:`KERNELS`."""
-    from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc_cuda, ipc_slab,
-                                                 linearity_cuda, median_cuda, pink_cuda)
+    from romanimpreprocess_tpu_torch.ops import (contract_cuda, invlin_cuda, ipc_cuda,
+                                                 ipc_slab, linearity_cuda, median_cuda,
+                                                 pink_cuda)
 
     return {"linearity": (linearity_cuda, "launches"),
             "ipc_rev2_frame": (ipc_cuda, "launches"),
@@ -807,7 +867,8 @@ def kernel_counters():
             "contract_reads": (contract_cuda, "launches"),
             "ipc_rev2_cube_blocked": (ipc_slab, "blocked_launches"),
             "ipc_rev2_cube_stream": (ipc_slab, "stream_launches"),
-            "correct_cube_fused": (ipc_slab, "fused_launches")}
+            "correct_cube_fused": (ipc_slab, "fused_launches"),
+            "invert_linearity": (invlin_cuda, "launches")}
 
 
 def phase_kernels(card):
@@ -855,6 +916,11 @@ def phase_kernels(card):
             check_contract(sim_t_matrix(rp, dev), 120, 120, gen, dev, False, card),
             check_contract(torch.rand((11, 5), generator=gen, device=dev),
                            37, 53, gen, dev, False, card)],
+        # every coefficient count the lane and the synthetic packs use,
+        # one group, a frame that is not a multiple of a block
+        "invert_linearity": [check_invlin(8, 520, 4, 7, gen, dev, False, card),
+                             check_invlin(1, 256, 0, 4, gen, dev, False, card),
+                             check_invlin(3, 131, 2, 1, gen, dev, False, card)],
     }
     # group counts above one register chunk (9, 17), a frame narrower
     # than one warp strip (20), sizes that are multiples of neither the
@@ -909,6 +975,9 @@ def phase_kernels(card):
     torch.cuda.empty_cache()
     out["contract_reads"] = check_contract(sim_t_matrix(rp, dev), na, na, gen, dev,
                                            True, card)
+    torch.cuda.empty_cache()
+    # the production lane's shape: 8 groups of 4088^2, Legendre order 6
+    out["invert_linearity"] = check_invlin(8, NSIDE, NB, 7, gen, dev, True, card)
     torch.cuda.empty_cache()
     # as the main path calls them: gain, the pre-padded planes at th=32
     out.update(check_ipc_slab(NGRP, na, gen, dev, True, card, True, True, th=32))
@@ -1565,7 +1634,7 @@ def phase_sim(card, device, d, caldir, nside=NSIDE):
     from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
 
     counters = {k: v for k, v in kernel_counters().items()
-                if k in ("ipc_fwd_cube", "pink_frames", "contract_reads")}
+                if k in ("ipc_fwd_cube", "pink_frames", "contract_reads", "invert_linearity")}
     rp = synth.READ_PATTERN_DEFAULT
     na = nside - 2 * NB
     cw = max(nside // 32, 4)
@@ -1573,9 +1642,9 @@ def phase_sim(card, device, d, caldir, nside=NSIDE):
     scene = synth.make_scene_file(d + "/truth_F184_163_4.fits", nside_active=na)
     t_scene = time.perf_counter() - t0
     base = {"IN": scene, "READS": pattern_to_reads(rp), "CALDIR": caldir, "SEED": 200}
-    cfg_k = dict(base, OUT=d + "/L1_cuda.asdf", IPC_BACKEND="auto",
+    cfg_k = dict(base, OUT=d + "/L1_cuda.asdf", IPC_BACKEND="auto", LIN_BACKEND="auto",
                  PINK_BACKEND="auto", CONTRACT_BACKEND="pallas")
-    cfg_p = dict(base, OUT=d + "/L1_plain.asdf", IPC_BACKEND="xla",
+    cfg_p = dict(base, OUT=d + "/L1_plain.asdf", IPC_BACKEND="xla", LIN_BACKEND="xla",
                  PINK_BACKEND="xla", CONTRACT_BACKEND="dot")
 
     # ---- the main path, counted ----
@@ -1691,7 +1760,8 @@ def phase_sim(card, device, d, caldir, nside=NSIDE):
         def fn():
             gen = rand.sim_generator(200, device)
             cube, _ = sim_to_l1.make_l1_fullcal(
-                gen, rate, rp, pack, crparam={}, ipc_backend=ipc_b, contract=contract)
+                gen, rate, rp, pack, crparam={}, ipc_backend=ipc_b, contract=contract,
+                lin_backend=ipc_b)
             return sim_to_l1.fill_in_refdata_and_1f(
                 gen, cube, pack, rp, nside, cw, amp33=np.zeros(1), nborder=NB,
                 pink_backend=pink_b)
@@ -1724,7 +1794,7 @@ FPA_BATCH_SCAS = (4,)
 FPA_CALIBRATE_SCAS = 2
 #: the kernels every lane of the exposure runner reaches
 FPA_KERNELS = ("linearity", "ipc_rev2_frame", "block_nanmedian", "ipc_fwd_cube",
-               "pink_frames", "contract_reads")
+               "pink_frames", "contract_reads", "invert_linearity")
 
 
 def _same_files(a, b, rels, what):

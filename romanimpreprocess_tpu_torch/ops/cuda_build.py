@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = ("linearity.cu", "blockmed.cu", "contract.cu", "ipc_fwd.cu", "pink.cu",
-           "ipc_slab.cu")
+           "ipc_slab.cu", "invlin.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -101,6 +101,7 @@ def _declare(lib):
          (P, L, I, P, L, I, P, L, I, P, I, I, I, I, I, I, P, L, P, L, I, I, I, I, I,
           I, I, I, I, P)),
         ("ipc_slab_resident", (I, I, P)),
+        ("invert_linearity_launch", (P,) * 7 + (I, I, I, I, L, I, I, P)),
     ):
         if hasattr(lib, name):
             fn = getattr(lib, name)

@@ -196,7 +196,8 @@ class _Stages:
         res, _l1dq = sim_to_l1.make_l1_fullcal(
             noise.stream(seed, (noise.SIM_STREAM,), dev), arrs["rate"],
             self.read_pattern, self.pack, frame_time=self.frame_time, crparam={},
-            ipc_backend=self.sim_ipc, contract=self.cfg["contract"])
+            ipc_backend=self.sim_ipc, contract=self.cfg["contract"],
+            lin_backend=self.cfg["lin"])
         data, amp33 = self.fill(noise.stream(seed, (noise.FILL_STREAM,), dev), res)
         del res
         arrs0 = dict(arrs, data=data)

@@ -22,10 +22,11 @@ physics, in PyTorch:
   (``sim_to_isim.py:711-730``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-``IPC_BACKEND`` and ``PINK_BACKEND`` choose between the hand-written
-CUDA kernels (forward IPC, pink-noise transform) and their plain
-PyTorch versions, ``CONTRACT_BACKEND`` between ``torch.einsum`` and the
-contraction kernel (:mod:`..config`).
+``IPC_BACKEND``, ``LIN_BACKEND`` and ``PINK_BACKEND`` choose between
+the hand-written CUDA kernels (forward IPC, the bisection inverse of the
+linearity, pink-noise transform) and their plain PyTorch versions,
+``CONTRACT_BACKEND`` between ``torch.einsum`` and the contraction kernel
+(:mod:`..config`).
 
 While a ``torch.profiler`` records, the steps are ranges of
 :mod:`..utils.profiling`, none inside another: the sim's
@@ -69,7 +70,8 @@ from ..config import (load_config, reads_to_pattern, resolve_backend,
 from ..dqflags import group as gdq
 from ..dqflags import i32
 from ..io import asdf_lite, calfiles, fits_lite
-from ..ops import contract_cuda, ipc, ipc_cuda, linearity, pink, ramp, rand, wcsutils
+from ..ops import (contract_cuda, invlin_cuda, ipc, ipc_cuda, linearity, pink, ramp,
+                   rand, wcsutils)
 from ..utils import profiling, skymodel, typefix
 from .l1_to_l2 import StageRanges, stage
 
@@ -112,24 +114,24 @@ class IL:
     ``ipc_linearity.IL:398-513``): linearized electrons -> raw DN.
 
     Holds tensors of one device.  ``ipc_backend='cuda'`` sends a 3-D
-    batch through the forward-IPC kernel (:func:`..ops.ipc_cuda.ipc_fwd_cube`).
+    batch through the forward-IPC kernel (:func:`..ops.ipc_cuda.ipc_fwd_cube`),
+    ``lin_backend='cuda'`` the division by the gain and the bisection
+    inverse through kernel D (:func:`..ops.invlin_cuda.invert_linearity_fused`).
     """
 
     def __init__(self, lin, gain, ipc_kernel=None, start_e=0.0,
-                 ipc_backend="xla"):
+                 ipc_backend="xla", lin_backend="xla"):
         self.lin = lin  # LinearityData (full frame)
         self.gain = gain  # (ny, nx) full frame
         self.ipc_kernel = ipc_kernel  # (3, 3, na, na) or None
         self.start_e = start_e  # scalar or (na, na) electrons
         self.ipc_backend = ipc_backend
+        self.lin_backend = lin_backend
 
     def apply(self, counts_e):
         """Electrons (active region) -> raw DN (active region).
 
         Accepts a 2-D frame or a (ngrp, na, na) batch."""
-        nb = (self.gain.shape[-1] - counts_e.shape[-1]) // 2
-        ny = self.gain.shape[0]
-        act = slice(nb, ny - nb) if nb else slice(None)
         with profiling.span(f"{_PREFIX}.ipc_fwd"):
             x = counts_e + self.start_e
             if self.ipc_kernel is not None:
@@ -137,13 +139,10 @@ class IL:
                     x = ipc_cuda.ipc_fwd_cube(x.contiguous(), self.ipc_kernel)
                 else:
                     x = ipc.ipc_fwd(x, self.ipc_kernel)
-        lin_act = linearity.LinearityData(
-            self.lin.coefs[:, act, act], self.lin.smin[act, act],
-            self.lin.smax[act, act], self.lin.sref[act, act],
-            self.lin.dq[act, act],
-        )
         with profiling.span(f"{_PREFIX}.inv_linearity"):
-            S, _ = linearity.invert_linearity(x / self.gain[act, act], lin_act)
+            inverse = (invlin_cuda.invert_linearity_fused if self.lin_backend == "cuda"
+                       else invlin_cuda.invert_linearity_plain)
+            S, _ = inverse(x, self.gain, self.lin)
         return S
 
 
@@ -242,7 +241,7 @@ def _accumulate_resultants(gen, lam_per_read, read_pattern, crparam,
 
 def make_l1_fullcal(gen, counts_rate_e, read_pattern, pack, frame_time=None,
                     crparam=None, persistence=None, ipc_backend="xla",
-                    contract="dot"):
+                    contract="dot", lin_backend="xla"):
     """Counts rate (e/s, active region) -> L1 resultants in raw DN.
 
     Mirrors reference ``make_l1_fullcal`` (``sim_to_isim.py:163-262``):
@@ -256,7 +255,8 @@ def make_l1_fullcal(gen, counts_rate_e, read_pattern, pack, frame_time=None,
     draw.  The reference threads a ``romanisim.persistence.Persistence``
     object through the same call (``sim_to_isim.py:676-691``, always a
     fresh/empty one so zero physics there too); here the hook takes the
-    evaluated rate image directly.
+    evaluated rate image directly.  ``ipc_backend`` and ``lin_backend``
+    choose the IL forward model's kernels (:class:`IL`).
     """
     dev = gen.device
     stages = StageRanges(_PREFIX)
@@ -288,7 +288,7 @@ def make_l1_fullcal(gen, counts_rate_e, read_pattern, pack, frame_time=None,
     )
     il = IL(lin, gain,
             stage(pack.ipc_kernel, dev) if pack.ipc_kernel is not None else None,
-            start_e=reset_e, ipc_backend=ipc_backend)
+            start_e=reset_e, ipc_backend=ipc_backend, lin_backend=lin_backend)
 
     lam_per_frame = torch.clamp(rate_e * ft, min=0.0)
     res_e, crhits = _accumulate_resultants(
@@ -534,6 +534,7 @@ class Image2D:
             frame_time=ft, crparam={}, persistence=persistence,
             ipc_backend=resolve_backend(config, "IPC_BACKEND", device),
             contract=resolve_contract_backend(config, device),
+            lin_backend=resolve_backend(config, "LIN_BACKEND", device),
         )
 
         no_amp33 = bool(caldir.get("NO_AMP33", False))

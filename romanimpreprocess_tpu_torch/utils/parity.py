@@ -454,7 +454,7 @@ def plain_devices(d, ref="cpu", dev="cuda", nside=128, nseed=8):
     for i, x in enumerate(devs):
         c1 = {"IN": scene, "OUT": d + f"/L1_sim_{i}.asdf", "READS": pattern_to_reads(rp),
               "CALDIR": caldir, "SEED": 200, "IPC_BACKEND": "xla",
-              "PINK_BACKEND": "xla", "CONTRACT_BACKEND": "dot"}
+              "LIN_BACKEND": "xla", "PINK_BACKEND": "xla", "CONTRACT_BACKEND": "dot"}
         sim_to_l1.run_config(c1, device=x)
         c2 = dict(base, IN=c1["OUT"], OUT=d + f"/L2_sim_{i}.asdf",
                   FITSWCS=c1["OUT"][:-5] + "_asdf_wcshead.txt")

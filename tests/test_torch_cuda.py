@@ -11,10 +11,12 @@ Tolerances: the kernels repeat their plain twins' rounded steps in the
 same order (no FMA contraction), so linearity (cube and DQ), the block
 nanmedian (every size branch: clusters of 1 to 8 CTAs and the streaming
 kernel; also against ``np.nanmedian``), the read contraction, the forward
-IPC, the slab IPC inverse behind its four entry points (against the twin
-and against each other), the frame IPC inverse (the same kernel in the
-Neumann order; signed zeros and NaN positions too) and the L1 -> L2
-product are held bit for bit.  The
+IPC, the bisection inverse of the linearity (kernel D, S and exflag; and
+``make_l1_fullcal`` under either ``lin_backend``), the slab IPC inverse
+behind its four entry points (against the twin and against each other),
+the frame IPC inverse (the same kernel in the Neumann order; signed
+zeros and NaN positions too) and the L1 -> L2 product are held bit for
+bit.  The
 pink transform (the wgmma path and, below length 2^16, the mma.sync
 path) shares its twin's cast points and sums in another order:
 difference std < 1e-2 and max < 5e-2 of the frame std (the JAX
@@ -34,10 +36,11 @@ import torch
 from romanimpreprocess_tpu_torch import synth
 from romanimpreprocess_tpu_torch.dqflags import i32, pixel
 from romanimpreprocess_tpu_torch.io import asdf_lite
-from romanimpreprocess_tpu_torch.ops import (contract_cuda, ipc, ipc_cuda,
-                                             ipc_slab, linearity,
+from romanimpreprocess_tpu_torch import benchlib
+from romanimpreprocess_tpu_torch.ops import (contract_cuda, invlin_cuda, ipc,
+                                             ipc_cuda, ipc_slab, linearity,
                                              linearity_cuda, median_cuda, pink,
-                                             pink_cuda, sky)
+                                             pink_cuda, rand, sky)
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, noise, sim_to_l1
 from romanimpreprocess_tpu_torch.utils import parity, time_frame
 from romanimpreprocess_tpu_torch.utils.rows import Rows
@@ -259,6 +262,71 @@ def test_ipc_fwd_cuda_bit_identical(cuda_device, ngrp, na):
         assert torch.equal(got, ref)
 
 
+def _invlin_case(nside, ncoef, dev, seed=0):
+    """(gain, lin) full frames: ``synth``'s order-3 expansion cut, or
+    extended by small higher orders (a few DN at the ends of the range)."""
+    cal = synth.synth_cal_arrays(nside, synth.READ_PATTERN_DEFAULT, seed=seed)
+    rng = np.random.RandomState(seed)
+    extra = rng.uniform(-5.0, 5.0, (max(ncoef - 4, 0), nside, nside))
+    coefs = np.concatenate([cal["lin_coefs"], extra.astype(np.float32)])[:ncoef]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    lin = linearity.LinearityData(
+        t(coefs), t(cal["lin_smin"]), t(cal["lin_smax"]), t(cal["lin_sref"]),
+        torch.from_numpy(cal["lin_dq"].view(np.int32)).to(dev))
+    return t(cal["gain"]), lin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ngrp,nside,nb,ncoef", [
+    (8, 512, 0, 7),      # the lane's groups and order
+    (8, 520, 4, 7),      # the same in a border's window
+    (None, 256, 0, 7),   # one 2-D frame (ngrp 1)
+    (None, 256, 0, 4),   # four coefficients
+    (3, 130, 4, 4)])
+def test_invlin_cuda_bit_identical(cuda_device, ngrp, nside, nb, ncoef):
+    """Kernel D against ``(x / gain)`` -> ``linearity.invert_linearity``
+    on the active window, S and exflag bit for bit; x from below the
+    range to above it, so that z reaches both domain edges."""
+    gain, lin = _invlin_case(nside, ncoef, cuda_device)
+    na = nside - 2 * nb
+    act = slice(nb, nside - nb)
+    shape = (na, na) if ngrp is None else (ngrp, na, na)
+    rng = np.random.RandomState(nside + ncoef)
+    slin = torch.from_numpy(rng.uniform(-3000, 70000, shape).astype(np.float32))
+    x = (slin.to(cuda_device) * gain[act, act]).contiguous()
+    lin_act = linearity.LinearityData(*(a[..., act, act] for a in lin))
+    n0 = invlin_cuda.launches
+    got, ex_got = invlin_cuda.invert_linearity_fused(x, gain, lin)
+    want, ex_want = linearity.invert_linearity(x / gain[act, act], lin_act)
+    torch.cuda.synchronize()
+    assert invlin_cuda.launches == n0 + 1
+    assert got.shape == x.shape and ex_got.dtype == torch.bool
+    assert torch.equal(got, want)
+    assert torch.equal(ex_got, ex_want)
+    z = (got - lin_act.smin) / (lin_act.smax - lin_act.smin) * 2 - 1
+    assert float(z.min()) < -1 + 1e-5 and float(z.max()) > 1 - 1e-5
+
+
+@pytest.mark.cuda
+def test_make_l1_fullcal_lin_backends_bit_identical(cuda_device):
+    """``make_l1_fullcal`` at one seed under ``lin_backend`` 'cuda' and
+    'xla': resultants and DQ bit for bit, one launch of kernel D a call
+    under 'cuda' and none under 'xla'."""
+    _arr, _prep, pack = benchlib.exposure_bundle(nside=256, device=cuda_device)
+    rate = torch.from_numpy(np.random.RandomState(3).uniform(
+        0, 3000, (248, 248)).astype(np.float32)).to(cuda_device)
+    out = {}
+    for b in ("cuda", "xla"):
+        n0 = invlin_cuda.launches
+        out[b] = sim_to_l1.make_l1_fullcal(
+            rand.sim_generator(11, cuda_device), rate, synth.READ_PATTERN_DEFAULT,
+            pack, crparam={}, ipc_backend="cuda", lin_backend=b)
+        torch.cuda.synchronize()
+        assert invlin_cuda.launches == n0 + (b == "cuda")
+    assert torch.equal(out["cuda"][0], out["xla"][0])
+    assert torch.equal(out["cuda"][1], out["xla"][1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ngrp,na,th,with_gain,padded", [
     (3, 96, 16, True, True), (1, 100, 8, False, False), (2, 100, 16, True, False),
@@ -409,13 +477,15 @@ def test_run_config_kernels_match_plain_path(cuda_device, tmp_path):
                                   nstars=3)
     caldir = synth.make_cal_files(d + "/cal", rp, nside=256, seed=5, channelwidth=128)
     base = {"IN": scene, "READS": reads, "CALDIR": caldir, "SEED": 7}
-    counts = lambda: (contract_cuda.launches, ipc_cuda.fwd_launches, pink_cuda.launches)
+    counts = lambda: (contract_cuda.launches, ipc_cuda.fwd_launches, pink_cuda.launches,
+                      invlin_cuda.launches)
     n0 = counts()
     sim_to_l1.run_config(dict(base, OUT=d + "/k.asdf", CONTRACT_BACKEND="pallas"),
                          device=cuda_device)
     assert counts() == tuple(n + 1 for n in n0)
     sim_to_l1.run_config(dict(base, OUT=d + "/p.asdf", IPC_BACKEND="xla",
-                              PINK_BACKEND="xla", CONTRACT_BACKEND="dot"),
+                              LIN_BACKEND="xla", PINK_BACKEND="xla",
+                              CONTRACT_BACKEND="dot"),
                          device=cuda_device)
     assert counts() == tuple(n + 1 for n in n0)
     got, ref = asdf_lite.open(d + "/k.asdf")["roman"], asdf_lite.open(d + "/p.asdf")["roman"]

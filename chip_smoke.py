@@ -204,7 +204,7 @@ def cuda_ms(fn, runs=10, warmup=2):
 L2_KERNEL_NAMES = ("linearity_kernel", "NeumannOrder", "block_nanmedian", "SlabOrder")
 SIM_KERNEL_NAMES = ("ipc_fwd_kernel", "pink_", "contract_kernel", "invlin_kernel")
 NOISE_KERNEL_NAMES = L2_KERNEL_NAMES + ("pink_", "contract_kernel")
-#: the port's ``torch.profiler`` ranges (``l1_to_l2.StageRanges`` and the
+#: the port's ``torch.profiler`` ranges (``profiling.StageRanges`` and the
 #: noise runner's), whose copies on the GPU timeline are not kernels
 RANGE_PREFIXES = ("l1_to_l2.", "sim_to_l1.", "noise.")
 

@@ -13,8 +13,8 @@ kernel's padded planes).
 import numpy as np
 import torch
 
-from .config import (resolve_backend, resolve_contract_backend, resolve_device,
-                     resolve_ipc_backend)
+from .config import resolve_device, resolve_kernels
+from .io import staging
 from .io.calfiles import CalPack
 from .ops import ipc_cuda, ipc_slab, likely, ramp
 from .pipeline import l1_to_l2, noise_core
@@ -40,15 +40,12 @@ def core_bundle(nside=4096, read_pattern=None, seed=1000, frame_time=3.04,
         plan = likely.build_likely_plan(meta, exclude_first=True)
     else:
         plan = ramp.build_plan(meta, 0.4 / 1.8 / 6.5**2, True, None)
+    kernels = resolve_kernels(config, device)
     cfg = dict(
         exclude_first=True, backup=1, use_amp33=True, likelihood_fit=bool(likelihood),
         has_biascorr=False, has_dark_decay=False, wfi18=False,
         first_is_reset=(read_pattern[0] == [0]), has_ipc=True,
-        ipc=resolve_ipc_backend(config, device),
-        lin=resolve_backend(config, "LIN_BACKEND", device),
-        med=resolve_backend(config, "SKY_BACKEND", device),
-        contract=resolve_contract_backend(config, device),
-        pink=resolve_backend(config, "PINK_BACKEND", device),
+        ipc=kernels.ipc, lin=kernels.lin, med=kernels.med,
         has_dark_dq=False, skyorder=skyorder,
     )
     cal = synth_cal_arrays(nside, read_pattern, seed, frame_time, nborder)
@@ -79,7 +76,7 @@ def core_bundle(nside=4096, read_pattern=None, seed=1000, frame_time=3.04,
             cal["ipc_kernel"], th=l1_to_l2.SLAB_TH)
     else:
         host["ipc_kernel_frame"] = ipc_cuda.kernel_planes_frame(cal["ipc_kernel"], nside, nb)
-    arr = {k: l1_to_l2.stage(v, device, cache=False) for k, v in host.items()}
+    arr = {k: staging.stage(v, device, cache=False) for k, v in host.items()}
     arr["data"] = arr["data"].to(torch.float32)
     arr["opt_slope"] = torch.tensor(0.5, dtype=torch.float32, device=device)
     arr["dark_slope_ipc"], arr["flat_ipc"] = l1_to_l2.ipc_precal(
@@ -91,7 +88,8 @@ def exposure_bundle(nside=4096, read_pattern=None, seed=1000, frame_time=3.04,
                     nborder=4, skyorder=2, device=None, config=None):
     """(arr, prep, pack) for the staged exposure runner
     (``noise_core.make_staged_exposure_runner``): ``prep`` the
-    :func:`core_bundle` as ``prepare_inputs`` returns it, ``pack`` the
+    :func:`core_bundle` as ``prepare_inputs`` returns it, with ``config``'s
+    kernels (:func:`..config.resolve_kernels`), ``pack`` the
     synthetic cal pack the sim reads, ``arr`` the runner's bundle
     (:func:`..pipeline.noise_core.exposure_arrays`) at a rate of 3 e/s."""
     device = resolve_device(device)
@@ -119,7 +117,7 @@ def exposure_bundle(nside=4096, read_pattern=None, seed=1000, frame_time=3.04,
         arr=core_arr, plan=plan, cfg=cfg, geom=geom,
         read_pattern=[list(g) for g in read_pattern], frame_time=frame_time,
         meta=ramp.ma_table_meta(read_pattern, frame_time), weights_out=plan.W[-1],
-        device=device,
+        device=device, kernels=resolve_kernels(config or {}, device),
     )
     arr = noise_core.exposure_arrays(prep, np.full((na, na), 3.0, np.float32))
     return arr, prep, pack

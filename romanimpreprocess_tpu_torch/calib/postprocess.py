@@ -20,7 +20,7 @@ import torch
 
 from .. import pars
 from ..config import reads_to_pattern, resolve_device
-from ..io import asdf_lite
+from ..io import asdf_lite, staging
 from ..ops import linearity, sky
 from . import add_device_argument
 
@@ -143,14 +143,11 @@ def make_biascorr_file(lin_file, dark_file, out_path, sca, reads,
     nside = np.asarray(lin_tree["Smin"]).shape[0]
     act = slice(nb, nside - nb)
 
-    def plane(key, dtype=np.float32):
-        a = np.asarray(lin_tree[key])
-        return torch.from_numpy(np.ascontiguousarray(a[..., act, act].astype(dtype)))
+    def plane(key, dtype=np.float32):  # on the host, in the staged dtypes
+        return staging.from_host(np.asarray(lin_tree[key], dtype)[..., act, act])
 
     lin_pack = linearity.LinearityData(
-        plane("data"), plane("Smin"), plane("Smax"), plane("Sref"),
-        plane("dq", np.uint32).view(torch.int32),
-    )
+        plane("data"), plane("Smin"), plane("Smax"), plane("Sref"), plane("dq", np.uint32))
 
     xref = (reads[2 * bias_frame] + reads[2 * bias_frame + 1] - 1) / 2.0
     dark_slope_act = np.asarray(dark["dark_slope"])[act, act]

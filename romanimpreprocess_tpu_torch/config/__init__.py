@@ -5,23 +5,24 @@ keys and two embedded mini-languages: the READS flattened-pair
 read-pattern encoding and the noise-layer command strings like
 ``'Rz4PbrS2C1'``.  The ``*_BACKEND`` keys keep the JAX package's names
 and values; here they choose between a hand-written CUDA kernel and its
-plain PyTorch version.
+plain PyTorch version, all five read once for an entry point
+(:func:`resolve_kernels`).
 """
 
 import re
+from typing import NamedTuple
 
 import torch
 import yaml
 
 #: backend names that select a hand-written CUDA kernel.  For the IPC
 #: inverse of L1 -> L2 the three Pallas names of the JAX package keep
-#: their meaning, each with its own entry point (:func:`resolve_ipc_backend`):
+#: their meaning, each with its own entry point (``Kernels.ipc``):
 #: 'pallas' the blocked slab entry, 'pallas-stream' the streaming slab
 #: entry, 'pallas-frame' the frame inverse (one row-streaming kernel
 #: serves all three, the frame inverse in the reference's Neumann
-#: order).  Elsewhere (linearity, sky,
-#: the sim's forward IPC and pink noise) there is one kernel per key and
-#: every name selects it.
+#: order).  Elsewhere (linearity, sky, the sim's forward IPC and pink
+#: noise) there is one kernel per key and every name selects it.
 KERNEL_NAMES = ("cuda", "pallas", "pallas-stream", "pallas-frame")
 
 #: ``IPC_BACKEND`` value -> the calibration core's IPC route
@@ -44,16 +45,29 @@ def resolve_device(device=None):
     return dev
 
 
-def resolve_backend(config, key, device):
-    """Resolve a ``*_BACKEND`` config key to ``'cuda'`` or ``'xla'``.
+class Kernels(NamedTuple):
+    """The kernel choice of one entry point (:func:`resolve_kernels`):
+    'cuda' a hand-written kernel, 'xla' its plain PyTorch version.
+    ``ipc`` is the L1 -> L2 core's IPC route, ``ipc_fwd`` the sim's
+    forward IPC, ``lin`` the linearity and its inverse, ``med`` the
+    medfits' block median, ``pink`` the fills' 1/f transform,
+    ``contract`` the read contractions ('dot' or 'cuda')."""
 
+    ipc: str
+    ipc_fwd: str
+    lin: str
+    med: str
+    pink: str
+    contract: str
+
+
+def _kernel_or_plain(config, key, dev):
+    """A ``*_BACKEND`` key with one kernel as ``'cuda'`` or ``'xla'``:
     'auto' (the default) is the CUDA kernel on a ``cuda`` device and the
-    plain PyTorch version elsewhere; 'xla' is always the plain version
-    (the name is the JAX package's); 'cuda' and the Pallas names select
-    the CUDA kernel, which a CPU device cannot run.
-    """
+    plain PyTorch version elsewhere; 'xla' (the JAX package's name) the
+    plain version; 'cuda' and the Pallas names the CUDA kernel, which a
+    CPU device cannot run."""
     v = str(config.get(key, "auto")).lower()
-    dev = torch.device(device)
     if v == "auto":
         return "cuda" if dev.type == "cuda" else "xla"
     if v == "xla":
@@ -68,42 +82,15 @@ def resolve_backend(config, key, device):
     raise ValueError(f"{key}: unknown backend {v!r}")
 
 
-def resolve_ipc_backend(config, device):
-    """Resolve ``IPC_BACKEND`` for the L1 -> L2 IPC inverse to the core's
-    route, as the JAX package routes it:
-
-    - ``'cuda'``: the frame inverse ('cuda', 'pallas-frame', and 'auto'
-      on a ``cuda`` device);
-    - ``'slab'``: the slab kernel through its blocked fused full-frame
-      form ('pallas');
-    - ``'slab-stream'``: the slab kernel through its streaming
-      full-frame form ('pallas-stream');
-    - ``'xla'``: the frame inverse's plain PyTorch version ('xla', and
-      'auto' elsewhere).
-
-    The slab routes sum the inverse in another order than the frame
-    inverse, so the routes differ in the last bits.  On a CPU device a
-    name that selects a kernel raises.
-    """
-    v = str(config.get("IPC_BACKEND", "auto")).lower()
-    resolved = resolve_backend(config, "IPC_BACKEND", device)
-    return _IPC_ROUTES.get(v, resolved)
-
-
-def resolve_contract_backend(config, device):
-    """Resolve ``CONTRACT_BACKEND`` to ``'dot'`` or ``'cuda'``.
-
-    The key keeps the JAX package's meaning: 'dot' (the default) and
-    'auto' are one library product (``torch.einsum``), which the
-    reference also computes outside any kernel; 'pallas' or 'cuda'
-    selects the hand-written contraction kernel, which a CPU device
-    cannot run.
-    """
+def _contract(config, dev):
+    """``CONTRACT_BACKEND`` as ``'dot'`` or ``'cuda'``, in the JAX package's
+    meaning: 'dot' (the default) and 'auto' are ``torch.einsum``, as the
+    reference computes it outside any kernel; 'pallas' or 'cuda' the
+    contraction kernel, which a CPU device cannot run."""
     v = str(config.get("CONTRACT_BACKEND", "dot")).lower()
     if v in ("dot", "auto"):
         return "dot"
     if v in ("pallas", "cuda"):
-        dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(
                 f"CONTRACT_BACKEND: {v!r} selects a CUDA kernel, but the "
@@ -111,6 +98,29 @@ def resolve_contract_backend(config, device):
             )
         return "cuda"
     raise ValueError(f"CONTRACT_BACKEND: unknown backend {v!r}")
+
+
+def resolve_kernels(config, device):
+    """The five ``*_BACKEND`` keys of ``config`` as a :class:`Kernels`,
+    read once for an entry point on ``device``.
+
+    The core's IPC route ``ipc`` is as the JAX package routes it: 'cuda'
+    the frame inverse ('cuda', 'pallas-frame', 'auto' on a ``cuda``
+    device), 'slab' / 'slab-stream' the slab kernel's blocked / streaming
+    form ('pallas' / 'pallas-stream'; the sum in another order, so the
+    routes differ in the last bits), 'xla' the plain frame inverse.  On a
+    CPU device a name that selects a kernel raises, as does an unknown one.
+    """
+    dev = torch.device(device)
+    ipc_fwd = _kernel_or_plain(config, "IPC_BACKEND", dev)
+    return Kernels(
+        ipc=_IPC_ROUTES.get(str(config.get("IPC_BACKEND", "auto")).lower(), ipc_fwd),
+        ipc_fwd=ipc_fwd,
+        lin=_kernel_or_plain(config, "LIN_BACKEND", dev),
+        med=_kernel_or_plain(config, "SKY_BACKEND", dev),
+        pink=_kernel_or_plain(config, "PINK_BACKEND", dev),
+        contract=_contract(config, dev),
+    )
 
 
 def load_config(path):

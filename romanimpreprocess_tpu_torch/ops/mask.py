@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..dqflags import flag_bit, i32
+from ..io import staging
 from .saturation import dilate_box
 
 
@@ -23,14 +24,6 @@ def _dilate_cross(mask):
         | p[1:-1, :-2]
         | p[1:-1, 2:]
     )
-
-
-def as_dq_tensor(dq, device=None):
-    """A uint32 numpy DQ plane (or an int32 tensor) as an int32 tensor."""
-    if isinstance(dq, torch.Tensor):
-        return dq.to(device) if device is not None else dq
-    arr = np.ascontiguousarray(np.asarray(dq, np.uint32)).view(np.int32)
-    return torch.from_numpy(arr).to(device or "cpu")
 
 
 class CombinedMask:
@@ -48,7 +41,8 @@ class CombinedMask:
     def build(self, dq):
         """dq (ny, nx) — int32 tensor or uint32 numpy — -> boolean
         tensor mask (True = masked), on the tensor's device."""
-        dq = as_dq_tensor(dq)
+        if not isinstance(dq, torch.Tensor):
+            dq = staging.from_host(np.asarray(dq, np.uint32))
         mask = torch.zeros(dq.shape, dtype=torch.bool, device=dq.device)
         for grow, bits in self.growbits.items():
             if bits == 0:

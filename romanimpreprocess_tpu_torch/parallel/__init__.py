@@ -35,6 +35,7 @@ import torch
 
 from ..config import resolve_device
 from ..io import asdf_lite, calfiles
+from ..io.staging import place
 from ..pipeline import l1_to_l2
 from ..utils import typefix
 
@@ -91,13 +92,6 @@ def _shared(v):
     return np.asarray(v).strides[0] == 0
 
 
-def _place(v, device):
-    if isinstance(v, torch.Tensor):
-        return v.to(device)
-    a = np.array(v)  # a copy: staging shares the buffer on the CPU
-    return l1_to_l2.stage(a, device, cache=False).reshape(a.shape)
-
-
 def shard_batch(mesh, arrays):
     """Lane ``i``'s slice of every array of a stacked batch (leading SCA
     axis), placed on mesh entry ``i % len(mesh)``: a list of per-lane
@@ -112,10 +106,10 @@ def shard_batch(mesh, arrays):
             if _shared(v):
                 key = (k, str(dev))
                 if key not in placed:
-                    placed[key] = _place(v[0], dev)
+                    placed[key] = place(v[0], dev)
                 lane[k] = placed[key]
             else:
-                lane[k] = _place(v[i], dev)
+                lane[k] = place(v[i], dev)
         lanes.append(lane)
     return lanes
 

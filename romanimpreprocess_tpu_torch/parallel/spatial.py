@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..io.staging import place
 from ..ops import ipc_slab
 from ..pipeline import l1_to_l2
 from ..utils.rows import split_rows
@@ -85,15 +86,6 @@ def row_spec(v, nside, nborder):
     return None
 
 
-def _place(v, device):
-    """A slab of a bundle array on ``device``, contiguous (the kernels
-    read slabs through their plain row pitch)."""
-    if isinstance(v, torch.Tensor):
-        return v.contiguous().to(device)
-    a = np.ascontiguousarray(v)
-    return l1_to_l2.stage(a, device, cache=False).reshape(a.shape)
-
-
 def shard_rows(mesh, arrs, geom):
     """Cut a calibration bundle (``l1_to_l2.prepare_inputs``' ``arr`` or
     ``benchlib.core_bundle``'s; tensors or numpy arrays) into one slab
@@ -119,14 +111,14 @@ def shard_rows(mesh, arrs, geom):
             if axis is None:
                 key = (k, str(dev))
                 if key not in placed:
-                    placed[key] = _place(v, dev)
+                    placed[key] = place(v, dev)
                 part[k] = placed[key]
                 continue
             if v.shape[axis] == nside:
                 span = slice(r.y0, r.y0 + r.n)
             else:  # active height: the same frame rows' active part
                 span = r.active_span(nside, nb)
-            part[k] = _place(v[span] if axis == 0 else v[:, span], dev)
+            part[k] = place(v[span] if axis == 0 else v[:, span], dev)
         parts.append(part)
     return RowShards(parts, rows)
 

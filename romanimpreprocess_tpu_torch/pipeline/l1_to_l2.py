@@ -21,7 +21,7 @@ of :mod:`..utils.profiling` named ``host.<step>`` (``host.calibrate``,
 ``host.prepare`` with ``.plan`` and ``.medgain``, ``host.stage``,
 ``host.ipc_precal``, ``host.to_host``, ``host.package`` with ``.maps``,
 ``.refdata`` and ``.meta``), the core's stages spans named
-``l1_to_l2.<stage>`` (:class:`StageRanges`), and the copies are counted
+``l1_to_l2.<stage>``, and the copies (:mod:`..io.staging`) are counted
 (``h2d_bytes``, ``d2h_bytes``, ``gather_bytes``).
 
 The device core's stages (:func:`calibrate_rows`) take row slabs of the
@@ -32,8 +32,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`..config.resolve_device`).  The ``IPC_BACKEND``,
 ``LIN_BACKEND`` and ``SKY_BACKEND`` keys choose between the
 hand-written CUDA kernels and their plain PyTorch versions
-(:func:`..config.resolve_backend`; for the IPC inverse, which has a
-frame kernel and a slab kernel, :func:`..config.resolve_ipc_backend`).
+(:func:`..config.resolve_kernels`, once in :func:`prepare_inputs`; the
+IPC inverse has a frame kernel and a slab kernel).
 ``romancal_ramp_fit: True`` swaps the ramp fit for the likelihood
 fitter (:mod:`..ops.likely`), which adds ``dumo`` and ``chisq`` to the
 product.  DQ planes are int32 bit patterns on the device and uint32
@@ -43,17 +43,17 @@ numpy arrays in the L2 tree.
 import argparse
 import os
 import time
-import warnings
 
 import numpy as np
 import torch
 
 from .. import pars
-from ..config import (load_config, resolve_backend, resolve_contract_backend,
-                      resolve_device, resolve_ipc_backend)
+from ..config import load_config, resolve_device, resolve_kernels
 from ..dqflags import group as gdq
 from ..dqflags import i32, pixel
 from ..io import asdf_lite, calfiles, fits_lite
+# called through these names, which ``gpubench/entries`` wraps (and clears)
+from ..io.staging import _DEVICE_CACHE, send, stage, to_host  # noqa: F401
 from ..ops import (ipc, ipc_cuda, ipc_slab, likely, linearity,
                    linearity_cuda, mask, ramp, refsub, saturation, sky,
                    wcsutils)
@@ -107,27 +107,6 @@ def _wfi18_row_basis(nside, taus=WFI18_DEFAULT_TAUS):
     reff = rows + (rows // 256) * 4
     basis = np.stack([np.exp(-reff / t) for t in taus], axis=1)
     return basis.astype(np.float32)
-
-
-class StageRanges:
-    """Labels a device function's stages as ``<prefix>.<stage>`` spans
-    (:class:`..utils.profiling.span`, one flag read each when no
-    profiler records): ``stage(name)`` ends the open span and opens the
-    next."""
-
-    def __init__(self, prefix="l1_to_l2"):
-        self._prefix = prefix
-        self._open = None
-
-    def __call__(self, name):
-        self.close()
-        self._open = profiling.span(f"{self._prefix}.{name}")
-        self._open.__enter__()
-
-    def close(self):
-        if self._open is not None:
-            self._open.__exit__(None, None, None)
-            self._open = None
 
 
 def _add_active(x, y, act):
@@ -432,7 +411,7 @@ def calibrate_rows(parts, plan, cfg, geom):
     lead = slabs[0].dev
     ngrp = slabs[0].data.shape[0]
 
-    stage = StageRanges()
+    stage = profiling.StageRanges("l1_to_l2")
     stage("saturation")
     for s in slabs:
         _saturation(s, cfg, ab)
@@ -521,73 +500,9 @@ def make_core(plan, cfg, geom):
     return core
 
 
-#: DQ outputs: int32 bit patterns on the device, uint32 on the host
-_DQ_OUTPUTS = ("pdq", "rdq")
-
-
-@profiling.span("host.to_host")
-def to_host(out):
-    """Core outputs -> numpy (DQ planes as uint32), counted as
-    ``d2h_bytes``."""
-    host = {}
-    for k, v in out.items():
-        profiling.count("d2h_bytes", v.nbytes)
-        a = v.detach().cpu().numpy()
-        host[k] = a.view(np.uint32) if k in _DQ_OUTPUTS else a
-    return host
-
-
 # --------------------------------------------------------------------------
 # Host side
 # --------------------------------------------------------------------------
-
-# device copies of cal-pack arrays, keyed by (id, device); the value
-# holds the numpy array so a recycled id cannot alias a stale entry
-_DEVICE_CACHE = hostcache.BoundedCache(64, "device_arrays")
-
-
-def _send(t, device):
-    """The host tensor ``t`` copied to ``device``, counted as ``h2d_bytes``."""
-    profiling.count("h2d_bytes", t.nbytes)
-    return t.to(device)
-
-
-def stage(a, device, cache=True):
-    """A host numpy array as a tensor on ``device`` (uint32 DQ arrays
-    become int32 bit patterns, uint16 counts become int32).  Cal-pack
-    arrays are staged once per device (``cache``).  A copy (not a cache
-    hit) is the span ``host.stage``."""
-    ck = (id(a), str(device))
-    if cache:
-        hit = _DEVICE_CACHE.get(ck)
-        if hit is not None:
-            return hit[0]
-    with profiling.span("host.stage"):
-        t = _copy(a, device)
-    if cache:
-        _DEVICE_CACHE.put(ck, (t, a))
-    return t
-
-
-def _copy(a, device):
-    """:func:`stage`'s copy, uncached."""
-    arr = np.asarray(a)
-    with warnings.catch_warnings():
-        # arrays read from ASDF are read-only; nothing writes to a staged
-        # tensor, so the buffer is shared rather than copied
-        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
-        if arr.dtype == np.uint32:
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32))
-        elif arr.dtype == np.uint16:
-            # 2 bytes per value over the bus; widened on the device
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-            return _send(t, device).to(torch.int32) & 0xFFFF
-        elif arr.dtype == np.float32:
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
-    return _send(t, device)
-
 
 # cap 25 > the 18-SCA focal plane so per-SCA cal packs stay resident
 _IPC_PRECAL_CACHE = hostcache.BoundedCache(25, "ipc_precal")
@@ -622,10 +537,10 @@ def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
         )
         dslope_act = np.asarray(dark_slope[nb:-nb, nb:-nb], np.float32)
         stacked = np.stack([dslope_act * gain_act, flat_clipped * gain_flat])
-        corr = ipc.ipc_rev(_send(torch.from_numpy(stacked), device),
+        corr = ipc.ipc_rev(send(torch.from_numpy(stacked), device),
                            stage(ipc_kernel, device))
-        out = (corr[0] / _send(torch.from_numpy(gain_act), device),
-               corr[1] / _send(torch.from_numpy(gain_flat), device))
+        out = (corr[0] / send(torch.from_numpy(gain_act), device),
+               corr[1] / send(torch.from_numpy(gain_flat), device))
     return _IPC_PRECAL_CACHE.put(
         ck, (out, (flat, dark_slope, gain, ipc_kernel))
     )[0]
@@ -759,7 +674,8 @@ def _guide_window_rows(l1meta, config, nside, expand=1):
 def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     """Host-side preparation: plan, static cfg, and the array bundle for
     one SCA, staged onto ``device`` (default ``cuda``).  Returns a dict;
-    ``arr`` holds tensors, cal-pack arrays staged once per device."""
+    ``arr`` holds tensors, cal-pack arrays staged once per device;
+    ``kernels`` the :func:`..config.resolve_kernels` that ``cfg`` reads."""
     device = resolve_device(device)
     mylog = ProcessLog()
     caldir = config["CALDIR"]
@@ -788,10 +704,7 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     backup = int(config.get("SATURATION_BACKUP", 1))
 
     # ---- guide-window DQ flagging (host side; per-exposure metadata) ----
-    mask_dq = (
-        pack.mask_dq if pack.mask_dq is not None
-        else np.zeros((nside, nside), np.uint32)
-    )
+    mask_dq = pack.mask_dq if pack.mask_dq is not None else np.zeros((nside, nside), np.uint32)
     gw_rows = _guide_window_rows(l1meta, config, nside)
     if gw_rows is not None:
         mask_dq = mask_dq.copy()
@@ -866,6 +779,7 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     else:
         dd_signal = np.zeros(ngrp, dtype=np.float32)
 
+    kernels = resolve_kernels(config, device)
     cfg = dict(
         exclude_first=exclude_first,
         backup=backup,
@@ -876,18 +790,7 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         wfi18=wfi18,
         first_is_reset=(read_pattern[0] == [0]),
         has_ipc="ipc4d" in caldir,
-        # 'cuda' = the hand-written kernel, 'xla' = its plain version;
-        # 'auto' is the kernel on a CUDA device.  ipc: 'cuda' / 'xla'
-        # (the frame kernel and its twin), 'slab' / 'slab-stream' (the
-        # slab kernel through its blocked and streaming entry points)
-        ipc=resolve_ipc_backend(config, device),
-        lin=resolve_backend(config, "LIN_BACKEND", device),
-        med=resolve_backend(config, "SKY_BACKEND", device),
-        # the noise engine's fills and 'P...r' resample (the core itself
-        # draws nothing): 'dot' (torch.einsum) or 'cuda' (the read
-        # contraction kernel); 'cuda' or 'xla' for the 1/f transform
-        contract=resolve_contract_backend(config, device),
-        pink=resolve_backend(config, "PINK_BACKEND", device),
+        ipc=kernels.ipc, lin=kernels.lin, med=kernels.med,
         has_dark_dq=pack.dark_dq is not None,
         skyorder=int(config.get("SKYORDER", -1)),
     )
@@ -901,47 +804,35 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
             f"exposure has {ngrp}"
         )
 
-    def cal(a):  # cal-pack array, staged once per device
+    def cal(a, shape=(nside, nside), dtype=torch.float32):  # staged once per device
+        if a is None:  # the pack has none
+            return torch.zeros(shape, dtype=dtype, device=device)
         return stage(a, device)
 
     def exp(a):  # per-exposure array
         return stage(a, device, cache=False)
 
     arr = {
-        "opt_slope": _send(torch.tensor(
+        "opt_slope": send(torch.tensor(
             float(np.float32(opt_slope if opt_slope is not None else 0.0)),
             dtype=torch.float32), device),
         "data": exp(data).to(torch.float32),
-        "amp33": (
-            exp(l1["amp33"]).to(torch.float32) if "amp33" in l1
-            else torch.zeros((ngrp, nside, channelwidth), dtype=torch.float32,
-                             device=device)
-        ),
-        "amp33_med": (
-            cal(pack.amp33_med) if pack.amp33_med is not None
-            else torch.zeros((nside, channelwidth), dtype=torch.float32,
-                             device=device)
-        ),
+        "amp33": (exp(l1["amp33"]).to(torch.float32) if "amp33" in l1
+                  else cal(None, (ngrp, nside, channelwidth))),
+        "amp33_med": cal(pack.amp33_med, (nside, channelwidth)),
         "dark_cube": cal(pack.dark_cube)[de:],
         "dark_slope": cal(pack.dark_slope),
-        "dark_dq": (
-            cal(pack.dark_dq) if pack.dark_dq is not None
-            else torch.zeros((nside, nside), dtype=torch.int32, device=device)
-        ),
+        "dark_dq": cal(pack.dark_dq, dtype=torch.int32),
         "gain": cal(pack.gain),
         "read_sigma": cal(pack.read_sigma),
-        "mask_dq": cal(mask_dq) if gw_rows is None else exp(mask_dq),
+        # a plane made here (guide window, no mask file) is new each call
+        "mask_dq": (cal(mask_dq) if pack.mask_dq is not None and gw_rows is None
+                    else exp(mask_dq)),
         "saturation": cal(pack.saturation),
-        "saturation_dq": (
-            cal(pack.saturation_dq) if pack.saturation_dq is not None
-            else torch.zeros((nside, nside), dtype=torch.int32, device=device)
-        ),
-        "biascorr": (
-            cal(pack.biascorr)[pack.biascorr.shape[0] - ngrp:]
-            if pack.biascorr is not None
-            else torch.zeros((ngrp, nside - 2 * nb, nside - 2 * nb),
-                             dtype=torch.float32, device=device)
-        ),
+        "saturation_dq": cal(pack.saturation_dq, dtype=torch.int32),
+        "biascorr": (cal(pack.biascorr)[pack.biascorr.shape[0] - ngrp:]
+                     if pack.biascorr is not None
+                     else cal(None, (ngrp, nside - 2 * nb, nside - 2 * nb))),
         "lin_coefs": cal(pack.lin_coefs),
         "lin_smin": cal(pack.lin_smin),
         "lin_smax": cal(pack.lin_smax),
@@ -979,6 +870,7 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         uopt=uopt, weights_out=weights_out, medgain=medgain,
         has_dark_decay=has_dark_decay, wfi18=wfi18,
         exclude_first=exclude_first, log=mylog.output, device=device,
+        kernels=kernels,
     )
 
 

@@ -49,10 +49,9 @@ import numpy as np
 import torch
 
 from .. import pars
-from ..config import (layer_subscript, load_config, resolve_backend,
-                      resolve_contract_backend, resolve_device)
+from ..config import layer_subscript, load_config, resolve_device, resolve_kernels
 from ..galpoisson import draw_from_pearson
-from ..io import asdf_lite, calfiles, fits_lite
+from ..io import asdf_lite, calfiles, fits_lite, staging
 from ..ops import contract_cuda, rand, sky
 from ..utils import profiling
 from . import l1_to_l2, sim_to_l1
@@ -259,12 +258,7 @@ def _make_noise_cube_host(config, seed=None, *, pack=None, base_l1=None,
     na = nside - 2 * nb
     act = slice(nb, nside - nb)
     area_factor = l1_to_l2.area_factor_from_config(config, nside)
-    pink_b = resolve_backend(config, "PINK_BACKEND", device)
-    med_b = resolve_backend(config, "SKY_BACKEND", device)
-    contract = resolve_contract_backend(config, device)
-
-    def stage(a):
-        return l1_to_l2.stage(a, device, cache=False)
+    kernels = resolve_kernels(config, device)
 
     layers = config["NOISE"]["LAYER"]
     noiseimage = np.zeros((len(layers), na, na), dtype=np.float32)
@@ -309,9 +303,9 @@ def _make_noise_cube_host(config, seed=None, *, pack=None, base_l1=None,
             # white read noise on the active region, then a full
             # reference-pixel / 1-f / amp33 refill
             gen = layer_stream(seed, i_noise, R_STREAM, device)
-            src = stage(mytree["data"])[:, act, act].to(torch.float32)
+            src = staging.place(mytree["data"], device)[:, act, act].to(torch.float32)
             white = (rand.normal(gen, (ngrp, na, na))
-                     * l1_to_l2.stage(pack.read_sigma, device)[act, act]
+                     * staging.stage(pack.read_sigma, device)[act, act]
                      / torch.sqrt(nvec)[:, None, None])
             im_act = torch.clamp(torch.round(src + white), 0, 65535)
             im, amp33 = sim_to_l1.fill_in_refdata_and_1f(
@@ -319,11 +313,11 @@ def _make_noise_cube_host(config, seed=None, *, pack=None, base_l1=None,
                 fill_in_banding=True,
                 amp33=(np.zeros(1) if ("amp33" in mytree and pack.amp33_valid)
                        else None),
-                nborder=nb, pink_backend=pink_b,
+                nborder=nb, pink_backend=kernels.pink,
             )
-            mytree["data"] = sim_to_l1.u16_to_host(im)
+            mytree["data"] = staging.u16_to_host(im)
             if amp33 is not None:
-                mytree["amp33"] = sim_to_l1.u16_to_host(amp33)
+                mytree["amp33"] = staging.u16_to_host(amp33)
             del im, amp33, im_act, white, src
 
             new_tree, _ = l1_to_l2.calibrate_tree(mytree, config, pack,
@@ -356,30 +350,33 @@ def _make_noise_cube_host(config, seed=None, *, pack=None, base_l1=None,
             else:
                 diff += noise_core._pearson_o_draw(
                     layer_stream(seed, i_noise, O_STREAM, device),
-                    stage(endslice).to(torch.int32), stage(gI), stage(gain_a),
-                    tilnus, na,
+                    staging.place(endslice, device).to(torch.int32),
+                    staging.place(gI, device), staging.place(gain_a, device), tilnus, na,
                 ).cpu().numpy()
 
         if "P" in cmd:
             flags = layer_subscript(cmd, "P")
             if "b" in flags:
                 sky_order = int("0" + layer_subscript(flags.upper(), "B"))
-                _, skylevel = sky.medfit(stage(withsky), order=sky_order, backend=med_b)
+                _, skylevel = sky.medfit(staging.place(withsky, device), order=sky_order,
+                                         backend=kernels.med)
             else:
-                skylevel = stage(withsky)
+                skylevel = staging.place(withsky, device)
             if "r" in flags:
                 weightvecs, endslice, _ = _weightvecs_and_endslice(
                     base_l2["processinfo"], ngrp)
-                e_per_slice = torch.clamp(skylevel * stage(gain_a) * frame_time, min=0.0)
+                e_per_slice = torch.clamp(
+                    skylevel * staging.place(gain_a, device) * frame_time, min=0.0)
                 diff += resample_traced(
                     layer_stream(seed, i_noise, P_STREAM, device), e_per_slice,
-                    stage(gain_a), stage(endslice).to(torch.int32), read_pattern,
-                    weightvecs, ngrp, contract=contract,
+                    staging.place(gain_a, device), staging.place(endslice, device).to(torch.int32),
+                    read_pattern, weightvecs, ngrp, contract=kernels.contract,
                 ).cpu().numpy()
 
         if "S" in cmd:
             sky_order = int("0" + layer_subscript(cmd, "S"))
-            _, model = sky.medfit(stage(diff), order=sky_order, backend=med_b)
+            _, model = sky.medfit(staging.place(diff, device), order=sky_order,
+                                  backend=kernels.med)
             diff = diff - model.cpu().numpy()
 
         noiseimage[i_noise] = diff

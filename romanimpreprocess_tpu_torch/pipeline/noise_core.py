@@ -38,8 +38,9 @@ exposure's sim and fill theirs).
 import numpy as np
 import torch
 
-from ..config import layer_subscript, resolve_contract_backend
+from ..config import layer_subscript, resolve_kernels
 from ..galpoisson import draw_from_pearson_torch, get_tilde_nus
+from ..io import staging
 from ..ops import rand, sky
 from ..utils import profiling
 from . import l1_to_l2, noise, sim_to_l1
@@ -138,9 +139,9 @@ def _subtract_medfit(diff, order, med):
 @profiling.span("host.noise.to_host")
 def cube_to_host(cube):
     """The (nlayers, na, na) noise cube as host numpy, counted as
-    ``d2h_bytes``: how :func:`.noise.make_noise_cube` hands it on."""
-    profiling.count("d2h_bytes", cube.nbytes)
-    return cube.cpu().numpy()
+    ``d2h_bytes`` (:func:`..io.staging.fetch`): how
+    :func:`.noise.make_noise_cube` hands it on."""
+    return staging.fetch(cube)
 
 
 def exposure_arrays(prep, rate):
@@ -151,21 +152,21 @@ def exposure_arrays(prep, rate):
     charge rate in e/s, staged on the prep's device.  The sim reads the
     rest of the cal pack from ``pack`` (staged once per device)."""
     arr = {k: v for k, v in prep["arr"].items() if k != "data"}
-    arr["rate"] = l1_to_l2.stage(np.asarray(rate, np.float32), prep["device"],
-                                 cache=False)
+    arr["rate"] = staging.stage(np.asarray(rate, np.float32), prep["device"], cache=False)
     return arr
 
 
 class _Stages:
     """The layer bodies of one (prep, cal pack): two restricted-output
-    calibration cores and the per-layer stages on tensors."""
+    calibration cores and the per-layer stages on tensors.  The sim, the
+    fills and the layers take their kernels (:class:`..config.Kernels`)
+    from ``config`` where one is passed, else from ``prep["kernels"]``;
+    the cores theirs from ``prep["cfg"]``."""
 
     def __init__(self, prep, pack, config=None):
         cfg = prep["cfg"]
-        if config and "CONTRACT_BACKEND" in config:
-            # a run config's key overrides the prep's
-            cfg = dict(cfg, contract=resolve_contract_backend(config, prep["device"]))
         self.cfg, self.pack = cfg, pack
+        self.kernels = resolve_kernels(config, prep["device"]) if config else prep["kernels"]
         self.geom = nside, nb, cw = prep["geom"]
         self.na = nside - 2 * nb
         self.act = slice(nb, nside - nb)
@@ -185,7 +186,6 @@ class _Stages:
             cfg["exclude_first"])
         self.tilnus = _tilnus_table(self.read_pattern, self.weightvecs, start,
                                     self.frame_time)
-        self.sim_ipc = "cuda" if cfg["ipc"] in ("cuda", "slab", "slab-stream") else "xla"
 
     def simulate(self, seed, arrs):
         """sim -> L1 -> fill of one exposure from ``arrs["rate"]``
@@ -196,8 +196,8 @@ class _Stages:
         res, _l1dq = sim_to_l1.make_l1_fullcal(
             noise.stream(seed, (noise.SIM_STREAM,), dev), arrs["rate"],
             self.read_pattern, self.pack, frame_time=self.frame_time, crparam={},
-            ipc_backend=self.sim_ipc, contract=self.cfg["contract"],
-            lin_backend=self.cfg["lin"])
+            ipc_backend=self.kernels.ipc_fwd, contract=self.kernels.contract,
+            lin_backend=self.kernels.lin)
         data, amp33 = self.fill(noise.stream(seed, (noise.FILL_STREAM,), dev), res)
         del res
         arrs0 = dict(arrs, data=data)
@@ -213,7 +213,7 @@ class _Stages:
         im, amp33 = sim_to_l1.fill_in_refdata_and_1f(
             gen, im_act, self.pack, self.read_pattern, nside, cw,
             fill_in_banding=True, amp33=np.zeros(1) if self.do_amp33 else None,
-            nborder=nb, pink_backend=self.cfg["pink"])
+            nborder=nb, pink_backend=self.kernels.pink)
         return im.to(torch.float32), (None if amp33 is None else amp33.to(torch.float32))
 
     def perturb_fill(self, gen, src, arrs):
@@ -264,12 +264,12 @@ class _Stages:
         return _p_layer_draw(
             gen, es, withsky[self.act, self.act], gain_a,
             read_pattern=self.read_pattern, weightvecs=self.weightvecs,
-            ngrp=self.ngrp, frame_time=self.frame_time, med=self.cfg["med"],
-            contract=self.cfg["contract"], sky_order=sky_order,
+            ngrp=self.ngrp, frame_time=self.frame_time, med=self.kernels.med,
+            contract=self.kernels.contract, sky_order=sky_order,
             resample=resample, final_sky_order=final_sky_order)
 
     def s_layer(self, diff, sky_order):
-        return _subtract_medfit(diff, sky_order, self.cfg["med"])
+        return _subtract_medfit(diff, sky_order, self.kernels.med)
 
 
 def _run_layers(st, layers, seed, arrs0, base, data):
@@ -365,7 +365,8 @@ def make_staged_noise_runner(prep, pack, layers, config=None, mesh=None):
 
     ``prep``: :func:`..l1_to_l2.prepare_inputs` of the base L1 tree;
     ``layers``: the NOISE LAYER command list; ``config``: a run config
-    whose ``CONTRACT_BACKEND`` overrides the prep's.  Returns ``run(seed,
+    whose kernel choice the sim, fills and layers take in place of the
+    prep's.  Returns ``run(seed,
     arrs) -> (noise_cube (nlayers, na, na), base_out, checksum)`` on the
     prep's device, ``arrs`` being ``prep["arr"]`` (``data`` = the base L1
     cube); ``checksum`` is the cube's sum.  ``mesh``: the focal-plane

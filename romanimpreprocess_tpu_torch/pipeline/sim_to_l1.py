@@ -26,7 +26,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 the hand-written CUDA kernels (forward IPC, the bisection inverse of the
 linearity, pink-noise transform) and their plain PyTorch versions,
 ``CONTRACT_BACKEND`` between ``torch.einsum`` and the contraction kernel
-(:mod:`..config`).
+(:func:`..config.resolve_kernels`, once in :meth:`Image2D.simulate`).
+Arrays cross between host and device through :mod:`..io.staging`.
 
 While a ``torch.profiler`` records, the steps are ranges of
 :mod:`..utils.profiling`, none inside another: the sim's
@@ -65,15 +66,15 @@ import numpy as np
 import torch
 
 from .. import __version__, pars
-from ..config import (load_config, reads_to_pattern, resolve_backend,
-                      resolve_contract_backend, resolve_device)
+from ..config import load_config, reads_to_pattern, resolve_device, resolve_kernels
 from ..dqflags import group as gdq
 from ..dqflags import i32
 from ..io import asdf_lite, calfiles, fits_lite
 from ..ops import (contract_cuda, invlin_cuda, ipc, ipc_cuda, linearity, pink, ramp,
                    rand, wcsutils)
+from ..io.staging import place, stage, to_numpy, u16_to_host
 from ..utils import profiling, skymodel, typefix
-from .l1_to_l2 import StageRanges, stage
+from ..utils.profiling import StageRanges
 
 # Cosmic-ray model: flux [hits/cm^2/s] x pixel area [cm^2], log-normal
 # charge.  Tuned to the reference's test envelope of 10k-30k JUMP_DET
@@ -239,6 +240,14 @@ def _accumulate_resultants(gen, lam_per_read, read_pattern, crparam,
     return res, crh
 
 
+def _staged_lin(pack, device, rows):
+    """The pack's linearity arrays, staged once per device, at ``rows``
+    and the same columns."""
+    names = ("lin_coefs", "lin_smin", "lin_smax", "lin_sref", "lin_dq")
+    return linearity.LinearityData(*(stage(getattr(pack, n), device)[..., rows, rows]
+                                     for n in names))
+
+
 def make_l1_fullcal(gen, counts_rate_e, read_pattern, pack, frame_time=None,
                     crparam=None, persistence=None, ipc_backend="xla",
                     contract="dot", lin_backend="xla"):
@@ -261,10 +270,9 @@ def make_l1_fullcal(gen, counts_rate_e, read_pattern, pack, frame_time=None,
     dev = gen.device
     stages = StageRanges(_PREFIX)
     stages("reset")
-    rate_e = stage(counts_rate_e, dev, cache=False) if isinstance(
-        counts_rate_e, np.ndarray) else counts_rate_e.to(dev, torch.float32)
+    rate_e = place(counts_rate_e, dev).to(torch.float32)
     if persistence is not None:
-        rate_e = rate_e + stage(np.asarray(persistence), dev, cache=False)
+        rate_e = rate_e + place(persistence, dev)
     ft = float(pars.read_time if frame_time is None else frame_time)
     nside = pack.gain.shape[0]
     na = rate_e.shape[0]
@@ -281,11 +289,7 @@ def make_l1_fullcal(gen, counts_rate_e, read_pattern, pack, frame_time=None,
         reset_e = reset_e - (np.float32(pack.biascorr_t0)
                              * stage(pack.dark_slope, dev)[act, act] / gain_act)
 
-    lin = linearity.LinearityData(
-        stage(pack.lin_coefs, dev), stage(pack.lin_smin, dev),
-        stage(pack.lin_smax, dev), stage(pack.lin_sref, dev),
-        stage(pack.lin_dq, dev),
-    )
+    lin = _staged_lin(pack, dev, slice(None))
     il = IL(lin, gain,
             stage(pack.ipc_kernel, dev) if pack.ipc_kernel is not None else None,
             start_e=reset_e, ipc_backend=ipc_backend, lin_backend=lin_backend)
@@ -328,14 +332,8 @@ def make_l1_fullcal(gen, counts_rate_e, read_pattern, pack, frame_time=None,
 
 def _to_u16_range(x):
     """Round (half to even) and clip to [0, 65535]; int32, because torch
-    has thin uint16 support (:func:`u16_to_host` narrows it)."""
+    has thin uint16 support (:func:`..io.staging.u16_to_host` narrows it)."""
     return torch.clamp(torch.round(x), 0, 65535).to(torch.int32)
-
-
-def u16_to_host(t):
-    """An int32 tensor of values in [0, 65535] as a uint16 numpy array
-    (narrowed to 16 bits on the device, so half the bytes cross the bus)."""
-    return t.to(torch.int16).cpu().numpy().view(np.uint16)
 
 
 def fill_in_refdata_and_1f(gen, im, pack, read_pattern, nside, channelwidth,
@@ -489,11 +487,9 @@ class Image2D:
         flat = pack.flat[act, act]
         if pack.ipc_kernel is not None:
             kern = stage(pack.ipc_kernel, device)
-            dark_e = ipc.ipc_rev(
-                stage(dark_e, device, cache=False), kern).cpu().numpy()
-            flat = ipc.ipc_rev(
-                stage(flat, device, cache=False), kern,
-                gain=stage(gain_act, device, cache=False)).cpu().numpy()
+            dark_e = ipc.ipc_rev(place(dark_e, device), kern).cpu().numpy()
+            flat = ipc.ipc_rev(place(flat, device), kern,
+                               gain=place(gain_act, device)).cpu().numpy()
             flat = np.clip(flat, 0.0, 2 - 2**-21)
             dark_e = np.clip(dark_e, -0.1 * flat, None)
 
@@ -526,15 +522,15 @@ class Image2D:
         nside = pack.nside
         nb = pars.nborder
         gen = rand.sim_generator(seed, device)
+        kernels = resolve_kernels(config, device)
         rate_e = self.charge_rate(pack, config, sky_rate, device)
 
         # L1 synthesis
         resultants, l1dq = make_l1_fullcal(
             gen, rate_e.astype(np.float32), use_read_pattern, pack,
             frame_time=ft, crparam={}, persistence=persistence,
-            ipc_backend=resolve_backend(config, "IPC_BACKEND", device),
-            contract=resolve_contract_backend(config, device),
-            lin_backend=resolve_backend(config, "LIN_BACKEND", device),
+            ipc_backend=kernels.ipc_fwd, contract=kernels.contract,
+            lin_backend=kernels.lin,
         )
 
         no_amp33 = bool(caldir.get("NO_AMP33", False))
@@ -544,12 +540,12 @@ class Image2D:
             fill_in_banding=True,
             amp33=(np.zeros(1) if (pack.amp33_valid and not no_amp33) else None),
             nborder=nb,
-            pink_backend=resolve_backend(config, "PINK_BACKEND", device),
+            pink_backend=kernels.pink,
         )
         with profiling.span(f"{_PREFIX}.to_host"):
             im_u16 = u16_to_host(im)
             amp33_u16 = u16_to_host(amp33) if amp33 is not None else None
-            l1dq = l1dq.cpu().numpy().view(np.uint32)
+            l1dq = to_numpy(l1dq, dq=True)
             # kept for make_ideal_l2: the reference's af2 is built from
             # the PRE-fill float cube (``sim_to_isim.py:745-754``) —
             # before banding noise, uint16 rounding, and EXTRACT_REF
@@ -689,11 +685,8 @@ def _ideal_slope(cube, read_pattern, l1, pack, u, device=None):
     nside = pack.nside
     act = slice(nb, nside - nb)
     ft = float(l1["meta"]["exposure"].get("frame_time", pars.read_time))
-    names = ("lin_coefs", "lin_smin", "lin_smax", "lin_sref", "lin_dq")
     full = cube.shape[-1] == nside
-    lin = linearity.LinearityData(*(
-        stage(getattr(pack, n), device) if full
-        else stage(getattr(pack, n), device)[..., act, act] for n in names))
+    lin = _staged_lin(pack, device, slice(None) if full else act)
     meta = ramp.ma_table_meta(read_pattern, ft)
     exclude_first = read_pattern[0] == [0]
     lin_cube, _ = linearity.apply_linearity_cube(

@@ -10,6 +10,8 @@
   CPU time (``getrusage``; a sandboxed kernel may count no faults).
   While no profiler records, a span reads one flag and does nothing
   else.
+- :class:`StageRanges` — the stages of a device function as a run of
+  spans ``<prefix>.<stage>``, none inside another.
 - :func:`count` — adds to a named counter, under the same gate.
 - :func:`snapshot` / :func:`reset` — what the recorder holds, and
   clearing it.
@@ -17,8 +19,8 @@
   Chrome trace (``trace.json``, for ``chrome://tracing`` or Perfetto)
   and the recorder's :func:`snapshot` of the body (``spans.json``).
 
-The counters the program keeps: ``h2d_bytes`` (host -> device copies of
-the L1 -> L2 host driver), ``d2h_bytes`` (its copies back),
+The counters the program keeps: ``h2d_bytes`` (host -> device copies,
+:mod:`..io.staging`), ``d2h_bytes`` (the counted copies back),
 ``gather_bytes`` (rows the row-sharded core concatenates across slabs),
 ``cache.<name>.hit`` / ``cache.<name>.miss`` (the lookups of each
 :class:`.hostcache.BoundedCache`).
@@ -119,6 +121,25 @@ class span:
                 return fn(*args, **kwargs)
 
         return spanned
+
+
+class StageRanges:
+    """Labels a device function's stages as ``<prefix>.<stage>`` spans
+    (:class:`span`, one flag read each when no profiler records):
+    ``stage(name)`` ends the open span and opens the next."""
+
+    def __init__(self, prefix):
+        self._prefix, self._open = prefix, None
+
+    def __call__(self, name):
+        self.close()
+        self._open = span(f"{self._prefix}.{name}")
+        self._open.__enter__()
+
+    def close(self):
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
 
 
 def count(name, n=1):

@@ -35,7 +35,7 @@ import torch
 
 from romanimpreprocess_tpu_torch import synth
 from romanimpreprocess_tpu_torch.dqflags import i32, pixel
-from romanimpreprocess_tpu_torch.io import asdf_lite
+from romanimpreprocess_tpu_torch.io import asdf_lite, staging
 from romanimpreprocess_tpu_torch import benchlib
 from romanimpreprocess_tpu_torch.ops import (contract_cuda, invlin_cuda, ipc,
                                              ipc_cuda, ipc_slab, linearity,
@@ -408,8 +408,8 @@ def test_calibrateimage_likelihood_slab_routes_match(cuda_device, tmp_path):
         l1, dict(base, IPC_BACKEND="pallas", LIN_BACKEND="xla", SKY_BACKEND="xla"),
         pack, device=cuda_device)
     prep["cfg"]["ipc"] = "slab-plain"
-    p = l1_to_l2.to_host(l1_to_l2.make_core(prep["plan"], prep["cfg"],
-                                            prep["geom"])(prep["arr"]))
+    p = staging.to_host(l1_to_l2.make_core(prep["plan"], prep["cfg"],
+                                           prep["geom"])(prep["arr"]))
     assert counts() == (n0[0], n0[1] + 1, n0[2] + 1, n0[3] + 1)
     for k in a:
         np.testing.assert_array_equal(a[k], p[k], err_msg=k)

@@ -25,7 +25,8 @@ from romanimpreprocess_tpu import parallel as jparallel
 from romanimpreprocess_tpu.io import asdf_lite as jasdf
 from romanimpreprocess_tpu_torch import benchlib, parallel, synth
 from romanimpreprocess_tpu_torch.config import pattern_to_reads
-from romanimpreprocess_tpu_torch.io import asdf_lite
+from romanimpreprocess_tpu_torch.io import asdf_lite, staging
+from romanimpreprocess_tpu_torch.parallel import spatial
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, noise, noise_core, sim_to_l1
 from romanimpreprocess_tpu_torch.utils import parity
 
@@ -255,6 +256,8 @@ def test_shard_batch_places_shared_arrays_once():
     tb = parallel.broadcast_batch({"t": t}, 4)["t"]
     assert tb.stride(0) == 0 and tb.shape == (4, 5)
     assert parallel.shard_batch(mesh, {"t": tb})[3]["t"].data_ptr() == t.data_ptr()
+    # the lanes and the row slabs are placed by the one staging function
+    assert parallel.place is spatial.place is staging.place
 
 
 # --------------------------------------------------------------------------

@@ -155,7 +155,7 @@ def test_run_config_passes_resolved_lin_backend(tmp_path, monkeypatch, value, wa
 
 def test_exposure_sim_passes_the_preps_lin_backend(monkeypatch):
     arr, prep, pack = benchlib.exposure_bundle(nside=32, device="cpu")
-    assert prep["cfg"]["lin"] == "xla"  # LIN_BACKEND auto on the CPU
+    assert prep["kernels"].lin == prep["cfg"]["lin"] == "xla"  # LIN_BACKEND auto on the CPU
     seen = []
     real = sim_to_l1.make_l1_fullcal
 
@@ -166,7 +166,7 @@ def test_exposure_sim_passes_the_preps_lin_backend(monkeypatch):
     monkeypatch.setattr(sim_to_l1, "make_l1_fullcal", fullcal)
     data = {}
     for b in ("xla", "cuda"):
-        prep["cfg"]["lin"] = b
+        prep["kernels"] = prep["kernels"]._replace(lin=b)
         data[b] = noise_core._Stages(prep, pack).simulate(7, arr)["data"]
     assert seen == ["xla", "cuda"]
     assert torch.equal(data["xla"], data["cuda"])

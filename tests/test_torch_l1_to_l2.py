@@ -37,7 +37,7 @@ from romanimpreprocess_tpu.io import asdf_lite as jasdf
 from romanimpreprocess_tpu.pipeline import l1_to_l2 as jl1_to_l2
 from romanimpreprocess_tpu.pipeline import sim_to_l1
 from romanimpreprocess_tpu.synth import make_cal_files, make_scene_file
-from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
+from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, staging
 from romanimpreprocess_tpu_torch.ops import ipc_slab
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
 
@@ -190,10 +190,10 @@ def test_slab_ipc_route_matches_default_route(pairs):
         prep = l1_to_l2.prepare_inputs(l1, cfg, pack, area, device="cpu")
         assert prep["cfg"]["ipc"] == "xla" and "ipc_kernel_padded" not in prep["arr"]
         prep["cfg"]["ipc"] = route
-        prep["arr"]["ipc_kernel_padded"] = l1_to_l2.stage(
+        prep["arr"]["ipc_kernel_padded"] = staging.stage(
             ipc_slab.kernel_planes_padded(pack.ipc_kernel, th=l1_to_l2.SLAB_TH), "cpu")
         core = l1_to_l2.make_core(prep["plan"], prep["cfg"], prep["geom"])
-        outs[route] = l1_to_l2.to_host(core(prep["arr"]))
+        outs[route] = staging.to_host(core(prep["arr"]))
         assert set(outs[route]) == set(keys)
     ref, got = outs["xla"], outs["slab-plain"]
     jump_diff = (ref["pdq"] ^ got["pdq"]) != 0

@@ -50,6 +50,7 @@ from romanimpreprocess_tpu.pipeline import l1_to_l2 as jl1_to_l2
 from romanimpreprocess_tpu.pipeline import sim_to_l1 as jsim_to_l1
 from romanimpreprocess_tpu_torch import benchlib
 from romanimpreprocess_tpu_torch.dqflags import pixel
+from romanimpreprocess_tpu_torch.io import staging
 from romanimpreprocess_tpu_torch.ops import ipc_cuda, linearity, ramp, sky
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
 
@@ -103,9 +104,9 @@ def to_port(arr, nside):
             continue
         v = np.asarray(v)
         out[k] = (torch.from_numpy(v.copy()) if v.ndim == 0
-                  else l1_to_l2.stage(v, "cpu", cache=False))
+                  else staging.stage(v, "cpu", cache=False))
     out["data"] = out["data"].to(torch.float32)
-    out["ipc_kernel_frame"] = l1_to_l2.stage(
+    out["ipc_kernel_frame"] = staging.stage(
         ipc_cuda.kernel_planes_frame(arr["ipc_kernel"], nside, NB), "cpu", cache=False)
     return out
 
@@ -179,7 +180,7 @@ def _reference_steps(mp):
 def test_core_bit_for_bit_with_the_reference_steps(case, monkeypatch):
     with monkeypatch.context() as mp, jax.disable_jit():
         _reference_steps(mp)
-        got = l1_to_l2.to_host(case["core"](case["arr"]))
+        got = staging.to_host(case["core"](case["arr"]))
     assert set(got) == set(case["ref"])
     for k, want in case["ref"].items():
         _same_bits(got[k], want, k)
@@ -202,7 +203,7 @@ def test_core_as_it_runs(case, monkeypatch):
 
     spy.__wrapped__ = ramp.candidate_slopes
     monkeypatch.setattr(ramp, "candidate_slopes", spy)
-    got = l1_to_l2.to_host(case["core"](case["arr"]))
+    got = staging.to_host(case["core"](case["arr"]))
     ref = case["ref"]
     for k in ("pdq", "endslice", "slope_err_read"):
         _same_bits(got[k], ref[k], k)
@@ -264,7 +265,7 @@ def test_sim_forward_model_bit_for_bit():
                               jnp.asarray(arr["gain"]), jnp.asarray(arr["ipc_kernel"]),
                               start_e=jnp.asarray(start))
         want = np.asarray(model.apply(jnp.asarray(counts)))
-    tl = [l1_to_l2.stage(a, "cpu", cache=False) for a in lin]
+    tl = [staging.stage(a, "cpu", cache=False) for a in lin]
     got = sim_to_l1.IL(linearity.LinearityData(*tl), torch.from_numpy(arr["gain"]),
                        torch.from_numpy(arr["ipc_kernel"]),
                        start_e=torch.from_numpy(start)).apply(torch.from_numpy(counts))
@@ -437,12 +438,12 @@ def main():
         _, tplan, tcfg, tgeom = benchlib.core_bundle(nside=nside, likelihood=likelihood,
                                                      device="cpu")
         core, tarr = l1_to_l2.make_core(tplan, tcfg, tgeom), to_port(arr, nside)
-        got = l1_to_l2.to_host(core(tarr))
+        got = staging.to_host(core(tarr))
         as_runs = bit_differences(ref, got)
         as_runs["skycoefs"]["max_ulps_of_max_coef"] = _core_sky_ulps(got, ref)
         with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
             _reference_steps(mp)
-            steps = bit_differences(ref, l1_to_l2.to_host(core(tarr)))
+            steps = bit_differences(ref, staging.to_host(core(tarr)))
         rep["cases"][name] = {"reference_op_by_op_s": seconds, "as_it_runs": as_runs,
                               "with_reference_steps": steps}
     rng = np.random.default_rng(2)

@@ -25,8 +25,8 @@ from romanimpreprocess_tpu.ops import likely as jlikely
 from romanimpreprocess_tpu.ops import ramp as jramp
 from romanimpreprocess_tpu.synth import make_cal_files as jmake_cal_files
 from romanimpreprocess_tpu_torch import config, synth
-from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
-from romanimpreprocess_tpu_torch.ops import cuda_build
+from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, staging
+from romanimpreprocess_tpu_torch.ops import cuda_build, rand
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
 
 torch.set_num_threads(1)
@@ -70,8 +70,27 @@ def test_every_module_imports_without_jax():
               "calib.make_gain", "calib.makemask", "calib.characterize",
               "calib.postprocess", "utils.visualize", "utils.fpaplot", "utils.diff",
               "utils.context_figure", "utils.orientation", "utils.profiling",
-              "parallel.spatial", "utils.rows", "utils.time_core"):
+              "parallel.spatial", "utils.rows", "utils.time_core", "io.staging"):
         assert "romanimpreprocess_tpu_torch." + m in _modules()
+
+
+@pytest.mark.parametrize("module,forbidden", [
+    # the sim sits below the L1 -> L2 calibration
+    ("pipeline.sim_to_l1", "pipeline.l1_to_l2"),
+    # the host <-> device boundary sits below every pipeline stage
+    ("io.staging", "pipeline"),
+])
+def test_import_graph(module, forbidden):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('romanimpreprocess_tpu_torch.{module}')\n"
+        f"bad = 'romanimpreprocess_tpu_torch.{forbidden}'\n"
+        "print(sorted(m for m in sys.modules if m == bad or m.startswith(bad + '.')))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
 
 
 def test_no_port_file_names_jax_or_the_jax_package():
@@ -96,6 +115,12 @@ def test_nothing_is_built_at_import():
 # devices and backends
 # --------------------------------------------------------------------------
 
+#: the fields of ``config.Kernels`` that a ``*_BACKEND`` key with one
+#: kernel decides, by key
+ONE_KERNEL = {"ipc_fwd": "IPC_BACKEND", "lin": "LIN_BACKEND", "med": "SKY_BACKEND",
+              "pink": "PINK_BACKEND"}
+
+
 @pytest.mark.parametrize("value,dev,want", [
     ("auto", "cpu", "xla"), ("AUTO", "cpu", "xla"), ("xla", "cpu", "xla"),
     ("auto", "cuda", "cuda"), ("xla", "cuda", "xla"), ("cuda", "cuda", "cuda"),
@@ -104,27 +129,36 @@ def test_nothing_is_built_at_import():
 ])
 def test_resolve_backend(value, dev, want):
     # the L1 -> L2 IPC inverse: each Pallas name has its own entry point
-    assert config.resolve_ipc_backend({"IPC_BACKEND": value}, dev) == want
+    assert config.resolve_kernels({"IPC_BACKEND": value}, dev).ipc == want
     # a key with one kernel: every kernel name selects it
     one = "cuda" if want.startswith("slab") else want
-    assert config.resolve_backend({"LIN_BACKEND": value}, "LIN_BACKEND", dev) == one
+    for field, key in ONE_KERNEL.items():
+        got = config.resolve_kernels({key: value}, dev)
+        assert getattr(got, field) == one, field
+    # every key at once: each field reads its own key only
+    every = config.resolve_kernels({k: value for k in ONE_KERNEL.values()}, dev)
+    assert every == config.Kernels(ipc=want, ipc_fwd=one, lin=one, med=one, pink=one,
+                                   contract="dot")
+    with pytest.raises(AttributeError):
+        every.lin = "xla"  # the record is immutable
 
 
 @pytest.mark.parametrize("value", ["cuda", "pallas", "pallas-stream", "pallas-frame"])
 def test_kernel_backend_on_cpu_raises(value):
-    with pytest.raises(ValueError):
-        config.resolve_backend({"IPC_BACKEND": value}, "IPC_BACKEND", "cpu")
-    with pytest.raises(ValueError, match="IPC_BACKEND"):
-        config.resolve_ipc_backend({"IPC_BACKEND": value}, "cpu")
+    for key in ONE_KERNEL.values():
+        with pytest.raises(ValueError, match=key):
+            config.resolve_kernels({key: value}, "cpu")
 
 
 def test_unknown_backend_raises():
-    with pytest.raises(ValueError):
-        config.resolve_backend({"LIN_BACKEND": "triton"}, "LIN_BACKEND", "cpu")
+    with pytest.raises(ValueError, match="LIN_BACKEND"):
+        config.resolve_kernels({"LIN_BACKEND": "triton"}, "cpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        config.resolve_ipc_backend({"IPC_BACKEND": "slab"}, "cuda")
-    assert config.resolve_ipc_backend({}, "cpu") == "xla"
-    assert config.resolve_backend({}, "SKY_BACKEND", "cpu") == "xla"
+        config.resolve_kernels({"IPC_BACKEND": "slab"}, "cuda")
+    assert config.resolve_kernels({}, "cpu") == config.Kernels(
+        ipc="xla", ipc_fwd="xla", lin="xla", med="xla", pink="xla", contract="dot")
+    assert config.resolve_kernels({}, "cuda") == config.Kernels(
+        ipc="cuda", ipc_fwd="cuda", lin="cuda", med="cuda", pink="cuda", contract="dot")
 
 
 @pytest.mark.parametrize("value,dev,want", [
@@ -134,14 +168,14 @@ def test_unknown_backend_raises():
 ])
 def test_resolve_contract_backend(value, dev, want):
     cfg = {} if value is None else {"CONTRACT_BACKEND": value}
-    assert config.resolve_contract_backend(cfg, dev) == want
+    assert config.resolve_kernels(cfg, dev).contract == want
 
 
 @pytest.mark.parametrize("value,exc", [("pallas", "CUDA kernel"), ("cuda", "CUDA kernel"),
                                        ("xla", "unknown backend")])
 def test_contract_backend_refused_on_cpu(value, exc):
     with pytest.raises(ValueError, match=exc):
-        config.resolve_contract_backend({"CONTRACT_BACKEND": value}, "cpu")
+        config.resolve_kernels({"CONTRACT_BACKEND": value}, "cpu")
 
 
 @pytest.mark.parametrize("key", ["IPC_BACKEND", "PINK_BACKEND", "CONTRACT_BACKEND"])
@@ -227,12 +261,53 @@ def test_prepare_inputs_stages_on_device_and_caches(small):
     a = l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")
     b = l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")
     assert a["cfg"]["ipc"] == a["cfg"]["lin"] == a["cfg"]["med"] == "xla"
+    # the core's cfg keeps what the core reads; the prep the whole choice
+    assert not {"contract", "pink"} & set(a["cfg"])
+    assert a["kernels"] == config.resolve_kernels(cfg, "cpu")
     assert a["arr"]["gain"] is b["arr"]["gain"]  # cal pack staged once
     assert a["arr"]["dark_slope_ipc"] is b["arr"]["dark_slope_ipc"]
     assert a["arr"]["data"].dtype == torch.float32
     assert a["arr"]["mask_dq"].dtype == torch.int32
     np.testing.assert_array_equal(a["arr"]["mask_dq"].numpy().view(np.uint32), pack.mask_dq)
     np.testing.assert_array_equal(a["arr"]["data"].numpy(), np.asarray(l1["data"], np.float32))
+
+
+def test_prepare_inputs_stages_a_made_mask_per_exposure(small):
+    """A pack without a mask file: the zero mask ``prepare_inputs`` makes
+    each call is staged per exposure, so a second call adds no entry to
+    the staging cache."""
+    d, caldir = small
+    l1 = asdf_lite.open(d + "/L1.asdf")["roman"]
+    pack = dataclasses.replace(calfiles.load_caldir(caldir), mask_dq=None)
+    staging._DEVICE_CACHE.clear()
+    cfg = {"CALDIR": caldir}
+    a = l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")
+    n = len(staging._DEVICE_CACHE)
+    assert 0 < n < staging._DEVICE_CACHE.capacity
+    b = l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")
+    assert len(staging._DEVICE_CACHE) == n
+    for p in (a, b):
+        assert p["arr"]["mask_dq"].dtype == torch.int32 and not p["arr"]["mask_dq"].any()
+    assert a["arr"]["gain"] is b["arr"]["gain"]
+
+
+def test_pack_staged_by_the_sim_is_a_hit_for_prepare_inputs(small):
+    """The sim and the L1 -> L2 calibration stage a cal pack through the one
+    cache: what ``make_l1_fullcal`` staged, ``prepare_inputs`` reuses on
+    the same device."""
+    d, caldir = small
+    l1 = asdf_lite.open(d + "/L1.asdf")["roman"]
+    pack = calfiles.load_caldir(caldir)  # arrays no call has staged
+    names = ("gain", "read_sigma", "lin_coefs", "lin_smin", "lin_smax", "lin_sref",
+             "lin_dq")
+    assert all(staging._DEVICE_CACHE.get((id(getattr(pack, k)), "cpu")) is None
+               for k in names)
+    sim_to_l1.make_l1_fullcal(rand.sim_generator(3, "cpu"), np.full((56, 56), 5.0, np.float32),
+                              READ_PATTERN, pack, crparam={})
+    staged = {k: staging._DEVICE_CACHE.get((id(getattr(pack, k)), "cpu"))[0] for k in names}
+    prep = l1_to_l2.prepare_inputs(l1, {"CALDIR": caldir}, pack, device="cpu")
+    for k in names:
+        assert prep["arr"][k] is staged[k], k
 
 
 def test_prepare_inputs_works_out_the_median_gain_once_a_pack(small, monkeypatch):

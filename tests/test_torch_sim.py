@@ -30,7 +30,7 @@ from romanimpreprocess_tpu.pipeline import l1_to_l2 as jl1_to_l2
 from romanimpreprocess_tpu.pipeline import sim_to_l1 as jsim
 from romanimpreprocess_tpu.utils import skymodel as jskymodel
 from romanimpreprocess_tpu_torch import pars, synth
-from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, fits_lite
+from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, fits_lite, staging
 from romanimpreprocess_tpu_torch.ops import linearity, rand, wcsutils
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
 from romanimpreprocess_tpu_torch.utils import skymodel
@@ -524,5 +524,5 @@ def test_fill_draws_border_banding_and_amp33(work):
         rand.sim_generator(3, "cpu"), im, pack, READ_PATTERN, N, 4,
         fill_in_banding=False)
     assert none is None and (nobands[:, 4:-4, 4:-4] == 20000).all()
-    assert sim_to_l1.u16_to_host(torch.tensor([0, 1, 32768, 65535])).tolist() == [
+    assert staging.u16_to_host(torch.tensor([0, 1, 32768, 65535])).tolist() == [
         0, 1, 32768, 65535]

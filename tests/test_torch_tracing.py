@@ -4,6 +4,7 @@ the named caches' hit and miss counts, the L1 -> L2 host driver's spans
 and byte counters over two ``calibrate_tree`` calls at 64^2, and the
 per-layer readers that divide them by the call count."""
 
+import functools
 import json
 import os
 import sys
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from romanimpreprocess_tpu_torch import synth
-from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles
+from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, staging
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2
 from romanimpreprocess_tpu_torch.utils import hostcache, profiling, typefix
 
@@ -151,11 +152,50 @@ def test_bounded_cache_counts_hits_and_misses():
     assert profiling.snapshot()["counters"] == {"cache.test.miss": 2, "cache.test.hit": 2}
 
 
+# ---- the host <-> device boundary (io.staging) ----
+
+
+@pytest.mark.parametrize("dtype,back,nbytes", [
+    (np.uint16, staging.u16_to_host, 2),
+    (np.uint32, functools.partial(staging.to_numpy, dq=True), 4),
+    (np.float32, staging.fetch, 4), (np.float64, staging.fetch, 4),
+])
+def test_wire_formats_both_ways(monkeypatch, dtype, back, nbytes):
+    """Each host dtype crosses in its wire format, ``nbytes`` a value each
+    way: uint16 counts as int16 (int32 on the device), uint32 DQ as
+    int32 bit patterns, other floats as float32; the values come back as
+    they went, the copy to the device counted as ``h2d_bytes`` under
+    ``host.stage`` and the counted copy back (``fetch``) as ``d2h_bytes``."""
+    vals = {np.uint16: [0, 1, 32767, 32768, 65535],
+            np.uint32: [0, 1, 2**31 - 1, 2**31, 2**32 - 1]}
+    a = np.array(vals.get(dtype, [0.0, -1.5, 3.25e6, 7.0e-8, 1.0]), dtype).reshape(1, 5)
+    crossed, cpu = [], torch.Tensor.cpu
+
+    def spy(t, *args, **kwargs):
+        crossed.append(t.nbytes)
+        return cpu(t, *args, **kwargs)
+
+    profiling.reset()
+    with _recording():
+        t = staging.stage(a, "cpu", cache=False)
+        monkeypatch.setattr(torch.Tensor, "cpu", spy)
+        got = back(t)
+        monkeypatch.undo()
+    snap = profiling.snapshot()
+    assert t.dtype == (torch.int32 if dtype in (np.uint16, np.uint32) else torch.float32)
+    assert snap["counters"]["h2d_bytes"] == crossed[0] == a.size * nbytes
+    assert snap["spans"]["host.stage"]["count"] == 1
+    assert snap["counters"].get("d2h_bytes", 0) == (
+        a.size * nbytes if back is staging.fetch else 0)
+    assert got.dtype == (np.float32 if dtype == np.float64 else dtype)
+    np.testing.assert_array_equal(got, a.astype(got.dtype))
+
+
 # ---- the L1 -> L2 host driver ----
 
 
 def _sent(a):
-    """Bytes :func:`l1_to_l2.stage` sends for ``a``: uint16 as 2 bytes a
+    """Bytes :func:`staging.stage` sends for ``a``: uint16 as 2 bytes a
     value, uint32 and float32 as they are, anything else as float32."""
     a = np.asarray(a)
     return a.size * (2 if a.dtype == np.uint16 else 4)

@@ -6,8 +6,17 @@ cross the bus as int16, 2 bytes a value, and are int32 on the device,
 widened (:func:`stage`) and narrowed (:func:`u16_to_host`) there; uint32
 DQ planes are int32 bit patterns on the device; float32 crosses as it
 is, other host dtypes as float32.  Copies to the device count
-``h2d_bytes``, the counted copies back (:func:`fetch`) ``d2h_bytes``
-(:mod:`..utils.profiling`).  A cal pack's arrays are staged once per
+``h2d_bytes``, the counted copies back (:func:`fetch`, :func:`to_host`)
+``d2h_bytes`` (:mod:`..utils.profiling`).
+
+A counted copy back from a CUDA device lands in page-locked host memory
+from torch's caching host allocator (``d2h_pinned_bytes``): every copy
+of a call is issued without waiting, then one sync of the current stream
+hands out numpy views of the blocks.  A block goes back to the allocator
+only when the last array viewing it is freed (the array holds the
+tensor that owns it), so a block is never handed out while an earlier
+result still views it.  From the CPU, :func:`fetch` shares the tensor's
+storage as ``.cpu()`` does.  A cal pack's arrays are staged once per
 device through :data:`_DEVICE_CACHE` (``device_arrays``), which the
 sim, the L1 -> L2 core and the noise engine share.  Nothing writes to a
 staged tensor: on the CPU it shares the host array's buffer.
@@ -83,21 +92,48 @@ def u16_to_host(t):
     return t.to(torch.int16).cpu().numpy().view(np.uint16)
 
 
-def to_numpy(t, dq=False):
-    """The tensor ``t`` as host numpy; ``dq``: a DQ plane of int32 bit
-    patterns, as uint32."""
-    a = t.detach().cpu().numpy()
+def _as_numpy(t, dq):
+    a = t.numpy()
     return a.view(np.uint32) if dq else a
 
 
-def fetch(t, dq=False):
-    """:func:`to_numpy`, counted as ``d2h_bytes``."""
+def to_numpy(t, dq=False):
+    """The tensor ``t`` as host numpy; ``dq``: a DQ plane of int32 bit
+    patterns, as uint32."""
+    return _as_numpy(t.detach().cpu(), dq)
+
+
+def _start_copy(t):
+    """The host tensor that the counted copy of ``t`` fills: from a CUDA
+    device a page-locked block, the copy issued on the current stream and
+    not waited for; from the CPU ``t.cpu()``."""
+    t = t.detach()
     profiling.count("d2h_bytes", t.nbytes)
-    return to_numpy(t, dq)
+    if t.device.type != "cuda":
+        return t.cpu()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    profiling.count("d2h_pinned_bytes", t.nbytes)
+    return host
+
+
+def _fetch_all(items):
+    """``[(tensor, dq)]`` as host numpy: every copy issued, then one sync
+    of the current stream of each CUDA device among them."""
+    hosts = [(_start_copy(t), dq) for t, dq in items]
+    for dev in {t.device for t, _ in items if t.device.type == "cuda"}:
+        torch.cuda.current_stream(dev).synchronize()
+    return [_as_numpy(h, dq) for h, dq in hosts]
+
+
+def fetch(t, dq=False):
+    """:func:`to_numpy`, counted as ``d2h_bytes`` (from a CUDA device
+    through page-locked memory, ``d2h_pinned_bytes``)."""
+    return _fetch_all([(t, dq)])[0]
 
 
 @profiling.span("host.to_host")
 def to_host(out):
     """The L1 -> L2 core's outputs as numpy (DQ planes as uint32),
-    counted as ``d2h_bytes``."""
-    return {k: fetch(v, k in _DQ_OUTPUTS) for k, v in out.items()}
+    counted as :func:`fetch` counts, with one sync for all of them."""
+    return dict(zip(out, _fetch_all([(v, k in _DQ_OUTPUTS) for k, v in out.items()])))

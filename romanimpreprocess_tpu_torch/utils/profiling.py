@@ -21,6 +21,8 @@
 
 The counters the program keeps: ``h2d_bytes`` (host -> device copies,
 :mod:`..io.staging`), ``d2h_bytes`` (the counted copies back),
+``d2h_pinned_bytes`` (those of them that went through page-locked host
+memory, from a CUDA device),
 ``gather_bytes`` (rows the row-sharded core concatenates across slabs),
 ``cache.<name>.hit`` / ``cache.<name>.miss`` (the lookups of each
 :class:`.hostcache.BoundedCache`).

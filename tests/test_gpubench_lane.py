@@ -267,3 +267,24 @@ def test_lane_program_span_readers(monkeypatch):
     for read in (lane_readers.core_host_ms, lane_readers.sys_ms, lane_readers.draws_m,
                  lane_readers.d2h_mb):
         assert read(ctx3) is None, read.__name__
+
+
+@pytest.mark.parametrize("call_span", ["host.calibrate", "host.lane"])
+def test_pinned_share_reader(monkeypatch, call_span):
+    """``host.d2h_pinned_pct`` reads the pinned share of the copy back over
+    the traced calls of either entry; nothing where the counter is absent
+    (a program without it) or the calls do not match."""
+    from types import SimpleNamespace
+
+    from gpubench import program_spans
+
+    snap = {"spans": {call_span: {"count": 2, "total_ms": 900.0, "sys_ms": 0.0}},
+            "counters": {"d2h_bytes": 4e6, "d2h_pinned_bytes": 3e6}}
+    monkeypatch.setattr(program_spans, "snapshot", lambda: snap)
+    read = spec.reader("host.d2h_pinned_pct")
+    two = SimpleNamespace(spans=SimpleNamespace(calls=[{}, {}]))
+    assert read(two) == pytest.approx(75.0)
+    assert read(SimpleNamespace(spans=SimpleNamespace(calls=[{}, {}, {}]))) is None
+    assert read(SimpleNamespace(spans=None)) is None
+    del snap["counters"]["d2h_pinned_bytes"]
+    assert read(two) is None

@@ -27,7 +27,10 @@ on the card against the plain path on the CPU: the slice's parity gates
 (``utils/parity.py``).
 """
 
+import gc
+import sys
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -42,7 +45,7 @@ from romanimpreprocess_tpu_torch.ops import (contract_cuda, invlin_cuda, ipc,
                                              linearity_cuda, median_cuda, pink,
                                              pink_cuda, rand, sky)
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, noise, sim_to_l1
-from romanimpreprocess_tpu_torch.utils import parity, time_frame
+from romanimpreprocess_tpu_torch.utils import parity, profiling, time_frame
 from romanimpreprocess_tpu_torch.utils.rows import Rows
 
 torch.set_num_threads(1)
@@ -861,3 +864,88 @@ def test_sky_and_fit_steps_on_the_card_equal_the_cpu(cuda_device):
     v[::7] = float("nan")
     qs = np.arange(1, 100, dtype=np.float32) / np.float32(100)
     assert torch.equal(sky.nanquantile(v.to(cuda_device), qs).cpu(), sky.nanquantile(v, qs))
+
+
+# ---- the copy back through page-locked host memory (io/staging.fetch) ----
+
+
+def _bits(shape, seed, device):
+    """int32 of every bit pattern (NaN and infinities too as float32)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32,
+                         device=device)
+
+
+def _pinned_blocks():
+    """Blocks the caching host allocator has made so far."""
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
+
+
+@pytest.mark.cuda
+def test_fetch_and_to_host_from_the_card_bit_for_bit(cuda_device):
+    """``fetch`` and ``to_host`` give ``t.cpu().numpy()`` bit for bit: float32
+    (every pattern, NaN ones too) and an int32 DQ plane as uint32; writable
+    arrays of the source's shape; every byte counted on both counters."""
+    dq = _bits((512, 1024), 1, cuda_device)
+    f = _bits((3, 512, 512), 2, cuda_device).view(torch.float32)
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = staging.to_host({"slope": f, "pdq": dq})
+        one = staging.fetch(f)
+        one_dq = staging.fetch(dq, dq=True)
+    counters = profiling.snapshot()["counters"]
+    assert counters["d2h_bytes"] == 2 * (f.nbytes + dq.nbytes)
+    assert counters["d2h_pinned_bytes"] == counters["d2h_bytes"]
+    for a, t, dtype in ((got["slope"], f, np.float32), (one, f, np.float32),
+                        (got["pdq"], dq, np.uint32), (one_dq, dq, np.uint32)):
+        assert a.dtype == dtype and a.shape == tuple(t.shape) and a.flags.writeable
+        np.testing.assert_array_equal(a.view(np.uint32), t.cpu().numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_live_fetched_arrays_keep_their_own_blocks(cuda_device):
+    """Three fetches of one size, all kept alive (the benchmark's reservoir
+    of 3 results), hold their own values, in blocks of their own; once
+    they are dropped a fetch of that size takes a freed block and makes
+    no new one."""
+    shape = (3, 700, 1000)  # 8.4 MB, a size class no other test takes
+    kept = [staging.fetch(torch.full(shape, float(i), device=cuda_device)) for i in range(3)]
+    for i, a in enumerate(kept):
+        assert (a == i).all()
+    ptrs = {a.ctypes.data for a in kept}
+    assert len(ptrs) == 3
+    kept[1][0, 0, 0] = -1.0  # writing one leaves the others as they were
+    assert (kept[0] == 0).all() and (kept[2] == 2).all()
+    del kept
+    gc.collect()
+    made = _pinned_blocks()
+    again = staging.fetch(torch.full(shape, 7.0, device=cuda_device))
+    assert (again == 7).all()
+    assert _pinned_blocks() == made and again.ctypes.data in ptrs
+
+
+@pytest.mark.cuda
+def test_to_host_from_two_threads_returns_each_its_own(cuda_device):
+    """``to_host`` from two threads at once (``parallel``'s entries):
+    each thread gets its own outputs, call after call."""
+    n = 40
+
+    def work(k):
+        out = []
+        for i in range(n):
+            v = float(1000 * k + i)
+            got = staging.to_host({"slope": torch.full((256, 1024), v, device=cuda_device),
+                                   "pdq": torch.full((256, 1024), int(v), dtype=torch.int32,
+                                                     device=cuda_device)})
+            out.append(bool((got["slope"] == v).all() and (got["pdq"] == int(v)).all()))
+        return out
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(work, k) for k in (1, 2)]
+            results = [f.result(timeout=120) for f in futs]
+    finally:
+        sys.setswitchinterval(interval)
+    assert results == [[True] * n, [True] * n]

@@ -28,6 +28,7 @@ from romanimpreprocess_tpu_torch import config, synth
 from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, staging
 from romanimpreprocess_tpu_torch.ops import cuda_build, rand
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, sim_to_l1
+from romanimpreprocess_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -289,6 +290,25 @@ def test_prepare_inputs_stages_a_made_mask_per_exposure(small):
     for p in (a, b):
         assert p["arr"]["mask_dq"].dtype == torch.int32 and not p["arr"]["mask_dq"].any()
     assert a["arr"]["gain"] is b["arr"]["gain"]
+
+
+@pytest.mark.parametrize("dtype,dq", [(torch.float32, False), (torch.int32, True)])
+def test_fetch_from_the_cpu_shares_storage_and_pins_nothing(dtype, dq):
+    """From a CPU tensor ``fetch`` and ``to_host`` share its storage as
+    ``.cpu()`` does (DQ planes viewed as uint32), count ``d2h_bytes`` and
+    leave ``d2h_pinned_bytes`` at 0."""
+    t = torch.arange(-6, 6, dtype=dtype).reshape(3, 4)
+    key = "pdq" if dq else "slope"
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = [staging.fetch(t, dq=dq), staging.to_host({key: t})[key]]
+    counters = profiling.snapshot()["counters"]
+    assert counters["d2h_bytes"] == 2 * t.nbytes
+    assert counters.get("d2h_pinned_bytes", 0) == 0
+    for a in got:
+        assert np.shares_memory(a, t.numpy())
+        assert a.dtype == (np.uint32 if dq else np.float32) and a.shape == (3, 4)
+        np.testing.assert_array_equal(a, t.numpy().view(a.dtype))
 
 
 def test_pack_staged_by_the_sim_is_a_hit_for_prepare_inputs(small):

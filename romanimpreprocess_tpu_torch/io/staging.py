@@ -16,10 +16,20 @@ hands out numpy views of the blocks.  A block goes back to the allocator
 only when the last array viewing it is freed (the array holds the
 tensor that owns it), so a block is never handed out while an earlier
 result still views it.  From the CPU, :func:`fetch` shares the tensor's
-storage as ``.cpu()`` does.  A cal pack's arrays are staged once per
-device through :data:`_DEVICE_CACHE` (``device_arrays``), which the
-sim, the L1 -> L2 core and the noise engine share.  Nothing writes to a
-staged tensor: on the CPU it shares the host array's buffer.
+storage as ``.cpu()`` does.
+
+A cal pack's arrays are staged once per device through
+:data:`_DEVICE_CACHE` (``device_arrays``), which the sim, the L1 -> L2
+core and the noise engine share: a :class:`..utils.hostcache.PackCache`
+bounded by device bytes (:func:`card_budget`: what the card has free
+when a pack is admitted must stay above :data:`RESERVE`; no bound on the
+CPU, where staging shares the host buffers).  :func:`..pipeline.l1_to_l2.prepare_inputs`
+stages a pack as one unit (``stage(..., pack=...)``), with its IPC
+precal and kernel planes, so that a pack is wholly resident or not at
+all and a focal plane's 18 packs stay on the card together; an array
+staged outside a pack (the sim's, the noise engine's) is a loose entry.
+Nothing writes to a staged tensor: on the CPU it shares the host
+array's buffer.
 """
 
 import warnings
@@ -29,9 +39,29 @@ import torch
 
 from ..utils import hostcache, profiling
 
+#: bytes of a card kept free of cached state for the work beside it: the
+#: largest working set a call of the port takes beside its pack at
+#: 4096^2 (the exposure lane's, about 11.4 GB), with room
+RESERVE = 16 * 2**30
+
+
+def card_budget(device, held):
+    """Bytes of cached state ``device`` may hold, where the cache holds
+    ``held`` there now: on a CUDA card, that and what the card has free
+    (the driver's free memory and the blocks PyTorch's allocator keeps
+    unused), less :data:`RESERVE`; None (no bound) elsewhere, where
+    staging shares the host buffers."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    free = torch.cuda.mem_get_info(dev)[0]
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return held + free + cached - RESERVE
+
+
 # device copies of cal-pack arrays, keyed by (id, device); the value
 # holds the numpy array so a recycled id cannot alias a stale entry
-_DEVICE_CACHE = hostcache.BoundedCache(64, "device_arrays")
+_DEVICE_CACHE = hostcache.PackCache("device_arrays", budget=card_budget)
 
 #: the L1 -> L2 core's DQ outputs (int32 bit patterns, uint32 on the host)
 _DQ_OUTPUTS = ("pdq", "rdq")
@@ -57,22 +87,26 @@ def send(t, device):
     return t.to(device)
 
 
-def stage(a, device, cache=True):
+def stage(a, device, cache=True, pack=None):
     """A host numpy array as a tensor on ``device`` in its wire format
     (uint16 counts widened to int32 there).  Cal-pack arrays are staged
-    once per device (``cache``).  A copy (not a cache hit) is the span
-    ``host.stage``."""
+    once per device (``cache``), with the cal pack whose lookup ``pack``
+    is (:meth:`..utils.hostcache.PackCache.pack`) or loose.  A copy (not
+    a cache hit) is the span ``host.stage``; a cached one counts
+    ``pack_staged_bytes``."""
     ck = (id(a), str(device))
     if cache:
-        hit = _DEVICE_CACHE.get(ck)
+        hit = _DEVICE_CACHE.get(ck, pack=pack)
         if hit is not None:
             return hit[0]
     with profiling.span("host.stage"):
-        t = send(from_host(a), device)
+        h = from_host(a)
+        t = send(h, device)
         if t.dtype == torch.int16:  # uint16 counts, widened on the device
             t = t.to(torch.int32) & 0xFFFF
     if cache:
-        _DEVICE_CACHE.put(ck, (t, a))
+        profiling.count("pack_staged_bytes", h.nbytes)
+        _DEVICE_CACHE.put(ck, (t, a), t.nbytes, device, pack=pack)
     return t
 
 

@@ -44,7 +44,8 @@ about 1.40 GB at 6 groups of 4088^2 (:func:`fwd_bytes_moved`).
 import numpy as np
 import torch
 
-from ..utils import hostcache, profiling
+from ..io.staging import _DEVICE_CACHE
+from ..utils import profiling
 from ..utils.rows import Rows
 from . import cuda_build, ipc, ipc_slab
 
@@ -54,8 +55,10 @@ launches = 0
 #: launches of the forward kernel since the last reset
 fwd_launches = 0
 
-# each 4096^2 plane stack is 0.6 GB of host RAM: hold at most two
-_PLANES_CACHE = hostcache.BoundedCache(2, "kernel_planes")
+# the kernel planes of each cal pack are held on the device with the pack
+# (pipeline.l1_to_l2.prepare_inputs), in io.staging's cache, which the
+# benchmark clears under this name too; the host planes are not kept
+_PLANES_CACHE = _DEVICE_CACHE
 
 
 def kernel_planes_frame(kernel, nside, nborder=4):
@@ -64,22 +67,18 @@ def kernel_planes_frame(kernel, nside, nborder=4):
     ``kernel`` is the (3, 3, na, na) active-region IPC kernel; plane
     ``3 * (1 + dy) + (1 + dx)`` holds ``kernel[1 + dy, 1 + dx]``.  The
     zero border is the zero-fill edge of the reference stencil: a tap
-    that sources a border pixel multiplies a zero weight.  Cached per
-    cal pack (id-keyed; the value holds a strong reference to
-    ``kernel`` so a recycled id cannot alias it).  A cache miss is the
-    span ``host.kernel_planes``.
+    that sources a border pixel multiplies a zero weight.  Built anew
+    on each call, the span ``host.kernel_planes``:
+    :func:`..pipeline.l1_to_l2.prepare_inputs` calls it once per cal
+    pack and device, and holds the staged planes with the pack.
     """
     na = kernel.shape[-1]
-    ck = (id(kernel), nside, nborder)
-    hit = _PLANES_CACHE.get(ck)
-    if hit is not None:
-        return hit[0]
     with profiling.span("host.kernel_planes"):
         kp = np.zeros((9, nside, nside), np.float32)
         kp[:, nborder : nborder + na, nborder : nborder + na] = np.asarray(
             kernel, np.float32
         ).reshape(9, na, na)
-    return _PLANES_CACHE.put(ck, (kp, kernel))[0]
+    return kp
 
 
 def bytes_moved(ngrp, nside):

@@ -219,8 +219,10 @@ def calibrate_fpa(configs, mesh=None, write=True, max_workers=8, profile=False,
     and stages it (:func:`..pipeline.l1_to_l2.prepare_inputs`) only when
     its turn comes, with at most ``prefetch`` SCAs staged at a time,
     runs the single-SCA core, brings the outputs to the host and drops
-    the staged bundle; the cal-pack copies stay only as long as the
-    bounded device caches keep them.  Mixed MA tables and options need
+    the staged bundle; the cal packs stay on each device as far as its
+    byte budget holds them whole (:data:`..io.staging._DEVICE_CACHE`,
+    shared with every other staging of the process: a card of 80 GB
+    holds a focal plane's 18).  Mixed MA tables and options need
     nothing special: each SCA runs its own core.  Each tree is the
     ``calibrateimage`` tree of its config bit for bit, its log's
     ``Timing:`` line aside; ``write`` writes it to the config's OUT

@@ -504,11 +504,14 @@ def make_core(plan, cfg, geom):
 # Host side
 # --------------------------------------------------------------------------
 
-# cap 25 > the 18-SCA focal plane so per-SCA cal packs stay resident
-_IPC_PRECAL_CACHE = hostcache.BoundedCache(25, "ipc_precal")
+# the IPC precal of each cal pack and device, held with the pack on the
+# device: io.staging's cache, bounded by the card's bytes, in which a
+# focal plane's 18 packs stay resident together (the name is the one the
+# benchmark clears)
+_IPC_PRECAL_CACHE = _DEVICE_CACHE
 
 
-def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
+def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device, pack=None):
     """IPC-deconvolved dark-slope and clipped-flat planes.
 
     The dark-slope and flat frames go through the same order-2 IPC
@@ -516,17 +519,19 @@ def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
     IPC-corrects the dark ref first, ``gen_cal_image.py:217-221``;
     ``get_flat`` deconvolves the flat, ``flatutils.py:61-74``).  Both
     are exposure-independent, so they are computed once per cal pack
-    and device (id-keyed cache) with :func:`..ops.ipc.ipc_rev`.
+    and device (id-keyed cache; held with the cal pack whose lookup
+    ``pack`` is, else loose) with :func:`..ops.ipc.ipc_rev`.
 
     Returns ``(dark_slope_ipc, flat_ipc)``, active-region (na, na)
     float32 tensors on ``device``: unclipped gain for the dark slope,
     gain clipped to >= 0.1 for the flat.  A cache miss is the span
-    ``host.ipc_precal``.
+    ``host.ipc_precal``; what it copies to the device counts
+    ``pack_staged_bytes`` (the IPC kernel too, which is not kept).
     """
     nb = nborder
     device = torch.device(device)
     ck = (id(flat), id(dark_slope), id(gain), id(ipc_kernel), nb, str(device))
-    hit = _IPC_PRECAL_CACHE.get(ck)
+    hit = _IPC_PRECAL_CACHE.get(ck, pack=pack)
     if hit is not None:
         return hit[0]
     with profiling.span("host.ipc_precal"):
@@ -537,16 +542,34 @@ def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device):
         )
         dslope_act = np.asarray(dark_slope[nb:-nb, nb:-nb], np.float32)
         stacked = np.stack([dslope_act * gain_act, flat_clipped * gain_flat])
-        corr = ipc.ipc_rev(send(torch.from_numpy(stacked), device),
-                           stage(ipc_kernel, device))
+        kernel = stage(ipc_kernel, device, cache=False)
+        corr = ipc.ipc_rev(send(torch.from_numpy(stacked), device), kernel)
         out = (corr[0] / send(torch.from_numpy(gain_act), device),
                corr[1] / send(torch.from_numpy(gain_flat), device))
+    profiling.count("pack_staged_bytes", stacked.nbytes + 2 * gain_act.nbytes + kernel.nbytes)
     return _IPC_PRECAL_CACHE.put(
-        ck, (out, (flat, dark_slope, gain, ipc_kernel))
+        ck, (out, (flat, dark_slope, gain, ipc_kernel)),
+        sum(t.nbytes for t in out), device, pack=pack,
     )[0]
 
 
-# cap 25 > the 18-SCA focal plane so per-SCA cal packs stay resident
+def _pack_planes(kind, kernel, build, device, pack):
+    """A cal pack's kernel planes (``build()``, host) on ``device``, held
+    with the pack (:data:`_DEVICE_CACHE`, keyed by the kernel's ``id``,
+    ``kind`` and device).  The host planes are built on a miss only, and
+    not kept; the copy counts ``pack_staged_bytes``."""
+    ck = (id(kernel), kind, str(device))
+    hit = _DEVICE_CACHE.get(ck, pack=pack)
+    if hit is not None:
+        return hit[0]
+    planes = build()
+    t = stage(planes, device, cache=False)
+    profiling.count("pack_staged_bytes", planes.nbytes)
+    return _DEVICE_CACHE.put(ck, (t, kernel), t.nbytes, device, pack=pack)[0]
+
+
+# a host float per gain array; cap 25 > the 18-SCA focal plane, so
+# under the focal plane's rotation every pack's stays
 _MEDGAIN_CACHE = hostcache.BoundedCache(25, "medgain")
 
 
@@ -675,7 +698,12 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     """Host-side preparation: plan, static cfg, and the array bundle for
     one SCA, staged onto ``device`` (default ``cuda``).  Returns a dict;
     ``arr`` holds tensors, cal-pack arrays staged once per device;
-    ``kernels`` the :func:`..config.resolve_kernels` that ``cfg`` reads."""
+    ``kernels`` the :func:`..config.resolve_kernels` that ``cfg`` reads.
+
+    The cal pack's arrays, its IPC precal and its kernel planes are one
+    lookup of :data:`_DEVICE_CACHE`: held on the device whole, or (where
+    the card's budget does not hold the pack) staged for this call
+    only (:class:`..utils.hostcache.PackCache`)."""
     device = resolve_device(device)
     mylog = ProcessLog()
     caldir = config["CALDIR"]
@@ -804,10 +832,13 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
             f"exposure has {ngrp}"
         )
 
+    # the cal pack's state on the device: looked up, and admitted, whole
+    held = _DEVICE_CACHE.pack(pack, device)
+
     def cal(a, shape=(nside, nside), dtype=torch.float32):  # staged once per device
         if a is None:  # the pack has none
             return torch.zeros(shape, dtype=dtype, device=device)
-        return stage(a, device)
+        return stage(a, device, pack=held)
 
     def exp(a):  # per-exposure array
         return stage(a, device, cache=False)
@@ -845,17 +876,19 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     }
     if cfg["has_ipc"]:
         arr["dark_slope_ipc"], arr["flat_ipc"] = ipc_precal(
-            pack.flat, pack.dark_slope, pack.gain, pack.ipc_kernel, nb, device
+            pack.flat, pack.dark_slope, pack.gain, pack.ipc_kernel, nb, device, pack=held
         )
         if cfg["ipc"] in SLAB_ROUTES:
-            # padded once per cal pack (id-keyed), staged once per device
-            arr["ipc_kernel_padded"] = cal(
-                ipc_slab.kernel_planes_padded(pack.ipc_kernel, th=SLAB_TH)
-            )
+            arr["ipc_kernel_padded"] = _pack_planes(
+                ("padded", SLAB_TH), pack.ipc_kernel,
+                lambda: ipc_slab.kernel_planes_padded(pack.ipc_kernel, th=SLAB_TH),
+                device, held)
         else:
-            arr["ipc_kernel_frame"] = cal(
-                ipc_cuda.kernel_planes_frame(pack.ipc_kernel, nside, nb)
-            )
+            arr["ipc_kernel_frame"] = _pack_planes(
+                ("frame", nside, nb), pack.ipc_kernel,
+                lambda: ipc_cuda.kernel_planes_frame(pack.ipc_kernel, nside, nb),
+                device, held)
+    _DEVICE_CACHE.admit(held)
 
     mylog.append("Saturation check complete\n")
     mylog.append("Linearity correction complete\n")

@@ -13,6 +13,8 @@
 - :class:`StageRanges` — the stages of a device function as a run of
   spans ``<prefix>.<stage>``, none inside another.
 - :func:`count` — adds to a named counter, under the same gate.
+- :func:`gauge` — sets a named level (the last value set), under the
+  same gate.
 - :func:`snapshot` / :func:`reset` — what the recorder holds, and
   clearing it.
 - :func:`trace` — a context manager around ``torch.profiler`` writing a
@@ -25,7 +27,14 @@ The counters the program keeps: ``h2d_bytes`` (host -> device copies,
 memory, from a CUDA device),
 ``gather_bytes`` (rows the row-sharded core concatenates across slabs),
 ``cache.<name>.hit`` / ``cache.<name>.miss`` (the lookups of each
-:class:`.hostcache.BoundedCache`).
+:class:`.hostcache.BoundedCache` and :class:`.hostcache.PackCache`),
+``pack_hits`` / ``pack_misses`` (the per-pack lookups of a
+:class:`.hostcache.PackCache`: the pack found whole on the device, or
+not), ``pack_staged_bytes`` (cal-pack state copied to the device on a
+miss: the cached :func:`..io.staging.stage`, the IPC precal, the kernel
+planes), ``pack_evictions`` (packs the device cache dropped to admit
+another, each inside the span ``host.pack_evict``).  The gauge:
+``pack_resident_bytes``, the device bytes the resident packs hold.
 """
 
 import contextlib
@@ -57,6 +66,7 @@ _LOCAL = threading.local()
 #: name -> [count, total s, self s, minor faults, system CPU s]
 _SPANS = {}
 _COUNTERS = {}
+_GAUGES = {}
 
 
 def _open_spans():
@@ -151,21 +161,31 @@ def count(name, n=1):
             _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
 
+def gauge(name, value):
+    """Set the level ``name`` to ``value`` while a profiler records: the
+    recorder keeps the last value set, not a sum."""
+    if recording():
+        with _LOCK:
+            _GAUGES[name] = value
+
+
 def snapshot():
     """``{"spans": {name: {count, total_ms, self_ms, minflt, sys_ms}},
-    "counters": {name: n}}`` since the last :func:`reset`."""
+    "counters": {name: n}, "gauges": {name: value}}`` since the last
+    :func:`reset`."""
     with _LOCK:
         spans = {k: {"count": c, "total_ms": 1e3 * t, "self_ms": 1e3 * s, "minflt": f,
                      "sys_ms": 1e3 * y}
                  for k, (c, t, s, f, y) in _SPANS.items()}
-        return {"spans": spans, "counters": dict(_COUNTERS)}
+        return {"spans": spans, "counters": dict(_COUNTERS), "gauges": dict(_GAUGES)}
 
 
 def reset():
-    """Clear every span's and counter's record."""
+    """Clear every span's, counter's and gauge's record."""
     with _LOCK:
         _SPANS.clear()
         _COUNTERS.clear()
+        _GAUGES.clear()
 
 
 @contextlib.contextmanager

@@ -284,7 +284,7 @@ def test_prepare_inputs_stages_a_made_mask_per_exposure(small):
     cfg = {"CALDIR": caldir}
     a = l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")
     n = len(staging._DEVICE_CACHE)
-    assert 0 < n < staging._DEVICE_CACHE.capacity
+    assert 0 < n < staging._DEVICE_CACHE.loose.capacity
     b = l1_to_l2.prepare_inputs(l1, cfg, pack, device="cpu")
     assert len(staging._DEVICE_CACHE) == n
     for p in (a, b):

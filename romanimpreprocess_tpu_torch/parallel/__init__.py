@@ -218,9 +218,10 @@ def calibrate_fpa(configs, mesh=None, write=True, max_workers=8, profile=False,
     SCA ``i`` belongs to mesh entry ``i % len(mesh)``, which prepares
     and stages it (:func:`..pipeline.l1_to_l2.prepare_inputs`) only when
     its turn comes, with at most ``prefetch`` SCAs staged at a time,
-    runs the single-SCA core, brings the outputs to the host and drops
-    the staged bundle; the cal packs stay on each device as far as its
-    byte budget holds them whole (:data:`..io.staging._DEVICE_CACHE`,
+    runs the single-SCA core, brings its outputs and their product maps
+    to the host in one sync (:func:`..pipeline.l1_to_l2.outputs_to_host`)
+    and drops the staged bundle; the cal packs stay on each device as
+    far as its byte budget holds them whole (:data:`..io.staging._DEVICE_CACHE`,
     shared with every other staging of the process: a card of 80 GB
     holds a focal plane's 18).  Mixed MA tables and options need
     nothing special: each SCA runs its own core.  Each tree is the
@@ -244,7 +245,7 @@ def calibrate_fpa(configs, mesh=None, write=True, max_workers=8, profile=False,
         torch.cuda.reset_peak_memory_stats(d)
     t0 = time.perf_counter()
     loaded_at = [t0] * n
-    l1s, preps, outs = [None] * n, [None] * n, [None] * n
+    l1s, preps, outs, maps = [None] * n, [None] * n, [None] * n, [None] * n
 
     def load_one(i):
         config = configs[i]
@@ -279,7 +280,8 @@ def calibrate_fpa(configs, mesh=None, write=True, max_workers=8, profile=False,
                         prep, t_prep = fut.result()
                         t2 = time.perf_counter()
                         core = l1_to_l2.make_core(prep["plan"], prep["cfg"], prep["geom"])
-                        outs[i] = l1_to_l2.to_host(core(prep.pop("arr")))
+                        outs[i], maps[i] = l1_to_l2.outputs_to_host(
+                            core(prep.pop("arr")), prep["geom"][1])
                         # calibrate_tree's log line, so the trees agree
                         prep["log"] += (
                             f"Timing: host prepare {1e3 * t_prep:.1f} ms; core "
@@ -305,7 +307,7 @@ def calibrate_fpa(configs, mesh=None, write=True, max_workers=8, profile=False,
     timings = {"host_staging_s": max(loaded_at, default=t0) - t0, "groups": groups,
                "config_groups": len({_core_identity(p) for p in preps})}
     tp = time.perf_counter()
-    trees = [l1_to_l2.package_tree(outs[i], preps[i], l1s[i], configs[i])
+    trees = [l1_to_l2.package_tree(outs[i], preps[i], l1s[i], configs[i], maps[i])
              for i in range(n)]
     timings["package_s"] = time.perf_counter() - tp
 

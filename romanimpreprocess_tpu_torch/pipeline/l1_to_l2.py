@@ -52,6 +52,7 @@ from ..config import load_config, resolve_device, resolve_kernels
 from ..dqflags import group as gdq
 from ..dqflags import i32, pixel
 from ..io import asdf_lite, calfiles, fits_lite
+from ..io.staging import from_host
 # called through these names, which ``gpubench/entries`` wraps (and clears)
 from ..io.staging import _DEVICE_CACHE, send, stage, to_host  # noqa: F401
 from ..ops import (ipc, ipc_cuda, ipc_slab, likely, linearity,
@@ -86,6 +87,10 @@ PRODUCT_OUTPUTS = (
     "slope", "slope_withsky", "slope_err_read", "slope_err_poisson",
     "pdq", "medsky", "skycoefs", "endslice",
 )
+
+#: the core outputs :func:`product_maps` reads (``dumo`` and ``chisq``
+#: where the likelihood fit gave them)
+MAP_INPUTS = ("slope_err_read", "slope_err_poisson", "dumo", "chisq")
 
 WFI18_DEFAULT_TAUS = (150.0, 1300.0)
 
@@ -500,6 +505,54 @@ def make_core(plan, cfg, geom):
     return core
 
 
+def product_maps(out, nb):
+    """The L2 product's maps made from the core's outputs ``out`` (the
+    core's tensors, or CPU tensors sharing host arrays) where they lie,
+    each cropped to the active region (border ``nb``) and contiguous, bit
+    for bit what numpy gives from the same values on the host:
+
+    - ``err``: numpy's float32 ``hypot`` of the two slope errors, which
+      is ``sqrt`` of the float64 sum of their squares rounded to float32
+      (each square exact in float64), and +inf where either is infinite
+      (``hypot(inf, nan)`` is inf, the float64 form nan);
+    - ``var_poisson`` and ``var_rnoise``: the float32 squares of
+      ``slope_err_poisson`` and ``slope_err_read``;
+    - ``dumo`` and ``chisq``, where ``out`` has them: float16, rounded to
+      nearest even as numpy's cast.
+
+    (A NaN made on a CUDA device may carry another payload.)
+
+    The device range ``l1_to_l2.maps``; counts ``maps_device`` on a CUDA
+    device, ``maps_host`` elsewhere.
+    """
+    ser, sep = out["slope_err_read"], out["slope_err_poisson"]
+    act = (slice(nb, ser.shape[-1] - nb),) * 2
+    with profiling.span("l1_to_l2.maps"):
+        ser, sep = ser[act], sep[act]
+        s, p = ser.double(), sep.double()
+        # ser's NaN where both are NaN, as numpy's (torch's CPU add takes
+        # the NaN of its second operand)
+        err = p.mul_(p).add_(s.mul_(s)).sqrt_().float()
+        err.masked_fill_(ser.isinf() | sep.isinf(), torch.inf)
+        maps = {"err": err, "var_poisson": sep * sep, "var_rnoise": ser * ser}
+        for k in ("dumo", "chisq"):
+            if k in out:
+                maps[k] = out[k][act].half()
+    profiling.count("maps_device" if ser.device.type == "cuda" else "maps_host")
+    return maps
+
+
+def outputs_to_host(out, nb):
+    """The core's outputs ``out`` and their product maps
+    (:func:`product_maps`, made where ``out`` lies) as numpy, from one
+    :func:`to_host` and so one sync: ``(out, maps)``, ``out`` with the
+    core's keys.  The maps cross in ``to_host``'s dict under the prefix
+    ``maps.``, which no core output has."""
+    maps = product_maps(out, nb)
+    host = to_host(dict(out, **{"maps." + k: v for k, v in maps.items()}))
+    return host, {k: host.pop("maps." + k) for k in maps}
+
+
 # --------------------------------------------------------------------------
 # Host side
 # --------------------------------------------------------------------------
@@ -655,13 +708,14 @@ def area_factor_from_config(config, nside):
 def calibrate_tree(l1, config, pack, area_factor=None, verbose=False,
                    device=None):
     """Calibrate an in-memory L1 tree; return (L2 tree, core outputs as
-    numpy)."""
+    numpy).  The product maps (:func:`product_maps`) are made beside the
+    core's outputs on the device and come back in the same sync."""
     device = resolve_device(device)
     t0 = time.perf_counter()
     prep = prepare_inputs(l1, config, pack, area_factor, device=device)
     t1 = time.perf_counter()
     core = make_core(prep["plan"], prep["cfg"], prep["geom"])
-    out = to_host(core(prep["arr"]))
+    out, maps = outputs_to_host(core(prep["arr"]), prep["geom"][1])
     t2 = time.perf_counter()
     prep = dict(
         prep,
@@ -669,7 +723,7 @@ def calibrate_tree(l1, config, pack, area_factor=None, verbose=False,
         + f"Timing: host prepare {1e3 * (t1 - t0):.1f} ms; "
         f"core device+transfer {1e3 * (t2 - t1):.1f} ms on {device}\n",
     )
-    tree = package_tree(out, prep, l1, config)
+    tree = package_tree(out, prep, l1, config, maps)
     if verbose:
         print(tree["processinfo"]["log"])
     return tree, out
@@ -908,11 +962,12 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
 
 
 @profiling.span("host.package")
-def package_tree(out, prep, l1, config):
-    """Package the core's host outputs (:func:`to_host`) into the L2
-    ASDF tree: the maps (span ``host.package.maps``), the reference
-    pixels (``host.package.refdata``) and the metadata
-    (``host.package.meta``)."""
+def package_tree(out, prep, l1, config, maps=None):
+    """Package the core's host outputs (:func:`to_host`) and the product
+    maps (:func:`product_maps`, as numpy) into the L2 ASDF tree: the maps
+    (span ``host.package.maps``), the reference pixels
+    (``host.package.refdata``) and the metadata (``host.package.meta``).
+    Without ``maps``, :func:`product_maps` makes them here from ``out``."""
     nside, nborder, _ = prep["geom"]
     nb = nborder
     ngrp = np.asarray(l1["data"]).shape[0]
@@ -926,27 +981,22 @@ def package_tree(out, prep, l1, config):
     if sliceout and ngrp >= 128:
         raise ValueError("too many groups")
 
-    slope = out["slope"]
     pdq = out["pdq"]
-    ser = out["slope_err_read"]
-    sep = out["slope_err_poisson"]
-
     act = slice(nb, nside - nb)
     with profiling.span("host.package.maps"):
-        err = np.hypot(ser, sep).astype(np.float32)
-        maps = {
-            "data": np.asarray(slope[act, act], np.float32),
+        if maps is None:
+            made = product_maps({k: from_host(out[k]) for k in MAP_INPUTS if k in out}, nb)
+            maps = {k: v.numpy() for k, v in made.items()}
+        l2maps = {
+            "data": np.asarray(out["slope"][act, act], np.float32),
             "dq": np.asarray(pdq[act, act], np.uint32),
-            "err": err[act, act],
-            "var_poisson": np.asarray(sep[act, act] ** 2, np.float32),
-            "var_rnoise": np.asarray(ser[act, act] ** 2, np.float32),
+            "err": maps["err"],
+            "var_poisson": maps["var_poisson"],
+            "var_rnoise": maps["var_rnoise"],
             "var_flat": np.zeros((nside - 2 * nb, nside - 2 * nb), np.float16),
             "data_withsky": np.asarray(out["slope_withsky"][act, act], np.float32),
         }
-        likely_maps = {}
-        if "dumo" in out:
-            likely_maps["dumo"] = np.asarray(out["dumo"][act, act], np.float16)
-            likely_maps["chisq"] = np.asarray(out["chisq"][act, act], np.float16)
+        likely_maps = {k: maps[k] for k in ("dumo", "chisq") if k in maps}
         if sliceout:
             endslice = np.asarray(out["endslice"], np.int8)
 
@@ -1004,7 +1054,7 @@ def package_tree(out, prep, l1, config):
         if sliceout:
             processinfo["endslice"] = endslice
 
-    im2 = {"meta": l2meta, **maps}
+    im2 = {"meta": l2meta, **l2maps}
     oututils.add_in_ref_data(im2, l1, pdq, nside, nb)
     im2.update(likely_maps)
     return {"roman": im2, "processinfo": processinfo}

@@ -26,6 +26,9 @@ The counters the program keeps: ``h2d_bytes`` (host -> device copies,
 ``d2h_pinned_bytes`` (those of them that went through page-locked host
 memory, from a CUDA device),
 ``gather_bytes`` (rows the row-sharded core concatenates across slabs),
+``maps_device`` / ``maps_host`` (SCAs whose L2 product maps,
+:func:`..pipeline.l1_to_l2.product_maps`, were made on a CUDA device /
+on the host),
 ``cache.<name>.hit`` / ``cache.<name>.miss`` (the lookups of each
 :class:`.hostcache.BoundedCache` and :class:`.hostcache.PackCache`),
 ``pack_hits`` / ``pack_misses`` (the per-pack lookups of a

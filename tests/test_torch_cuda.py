@@ -10,7 +10,8 @@ run it without the conftest:
 Tolerances: the kernels repeat their plain twins' rounded steps in the
 same order (no FMA contraction), so linearity (cube and DQ), the block
 nanmedian (every size branch: clusters of 1 to 8 CTAs and the streaming
-kernel; also against ``np.nanmedian``), the read contraction, the forward
+kernel; also against ``np.nanmedian``), the L2 product maps made on the
+card against the host numpy packaging (NaN by ``isnan``), the read contraction, the forward
 IPC, the bisection inverse of the linearity (kernel D, S and exflag; and
 ``make_l1_fullcal`` under either ``lin_backend``), the slab IPC inverse
 behind its four entry points (against the twin and against each other),
@@ -32,13 +33,14 @@ import sys
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
+import map_cases
 import numpy as np
 import pytest
 import torch
 
 from romanimpreprocess_tpu_torch import synth
 from romanimpreprocess_tpu_torch.dqflags import i32, pixel
-from romanimpreprocess_tpu_torch.io import asdf_lite, staging
+from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, staging
 from romanimpreprocess_tpu_torch import benchlib
 from romanimpreprocess_tpu_torch.ops import (contract_cuda, invlin_cuda, ipc,
                                              ipc_cuda, ipc_slab, linearity,
@@ -949,3 +951,75 @@ def test_to_host_from_two_threads_returns_each_its_own(cuda_device):
     finally:
         sys.setswitchinterval(interval)
     assert results == [[True] * n, [True] * n]
+
+
+def _same_as_numpy(got, ref, name):
+    """A map made on the card against numpy's: NaN where numpy has NaN
+    (the card may give another payload), every other value bit for bit."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape, name
+    nan = np.isnan(ref)
+    assert (np.isnan(got) == nan).all(), name
+    np.testing.assert_array_equal(map_cases.bits(got)[~nan], map_cases.bits(ref)[~nan],
+                                  err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 4096])
+def test_product_maps_on_the_card_match_numpy(cuda_device, n):
+    """``l1_to_l2.product_maps`` on the card against the host numpy
+    packaging (``tests/map_cases.py``: random values and the edges of
+    ``hypot`` and of the float16 cast), at 4096^2 too."""
+    out = map_cases.inputs(n=n, nb=4)
+    got = l1_to_l2.product_maps({k: torch.from_numpy(v).to(cuda_device)
+                                 for k, v in out.items()}, 4)
+    ref = map_cases.numpy_maps(out, 4)
+    assert set(got) == set(ref)
+    for k, r in ref.items():
+        assert got[k].device.type == "cuda" and got[k].is_contiguous(), k
+        _same_as_numpy(got[k].cpu().numpy(), r, k)
+
+
+@pytest.mark.cuda
+def test_calibrate_tree_makes_the_maps_on_the_card_in_one_sync(cuda_device, tmp_path,
+                                                               monkeypatch):
+    """One ``calibrate_tree`` call with the likelihood fit on the card: the
+    maps are made there (``maps_device`` once), come back with the core's
+    outputs through one ``to_host`` and one sync, and equal the host numpy
+    packaging of ``out``, which keeps the core's keys alone."""
+    d = str(tmp_path)
+    rp = synth.READ_PATTERN_DEFAULT
+    caldir = synth.make_cal_files(d + "/cal", rp, nside=64, seed=5)
+    cal = synth.synth_cal_arrays(64, rp, seed=5)
+    synth.write_l1_file(d + "/L1.asdf", synth.synth_l1_cube(cal, rp, rate_dn_s=10.0, nborder=4),
+                        rp, amp33=synth.synth_amp33(64, len(rp), 4))
+    config = {"IN": d + "/L1.asdf", "CALDIR": caldir, "SKYORDER": 2,
+              "romancal_ramp_fit": True}
+    pack = calfiles.load_caldir_cached(caldir)
+    l1 = asdf_lite.open(config["IN"])["roman"]
+    syncs, fetched = [], []
+    real_sync, real_to_host = torch.cuda.Stream.synchronize, l1_to_l2.to_host
+
+    def sync(stream):
+        syncs.append(stream)
+        return real_sync(stream)
+
+    def to_host(out):
+        n0 = len(syncs)
+        got = real_to_host(out)
+        fetched.append((set(out), {v.device.type for v in out.values()}, len(syncs) - n0))
+        return got
+
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize", sync)
+    monkeypatch.setattr(l1_to_l2, "to_host", to_host)
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        tree, out = l1_to_l2.calibrate_tree(l1, config, pack, device=cuda_device)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters["maps_device"] == 1 and "maps_host" not in counters
+    keys = set(l1_to_l2.PRODUCT_OUTPUTS) | {"dumo", "chisq"}
+    maps = {"err", "var_poisson", "var_rnoise", "dumo", "chisq"}
+    assert fetched == [(keys | {"maps." + k for k in maps}, {"cuda"}, 1)]
+    assert set(out) == keys
+    for k, r in map_cases.numpy_maps(out, 4).items():
+        _same_as_numpy(np.asarray(tree["roman"][k]), r, k)

@@ -27,8 +27,13 @@ One more test runs the port's core with the slab IPC route's plain twin
 (``cfg["ipc"] = "slab-plain"``: ``(3y - 3Ky) + K Ky`` with the taps in
 order) against the default route (the Neumann recursion, centre tap
 first) and holds the post-IPC science maps to the same tolerances.
+
+The product maps (``l1_to_l2.product_maps``: ``err``, the two variances,
+float16 ``dumo`` / ``chisq``) are held bit for bit to the host numpy
+packaging (``tests/map_cases.py``), one op at a time and in the trees.
 """
 
+import map_cases
 import numpy as np
 import pytest
 import torch
@@ -217,3 +222,65 @@ def test_return_arrays_and_core_outputs(pairs, tmp_path):
                                   device="cpu", return_arrays=True)
     assert set(out) == set(l1_to_l2.PRODUCT_OUTPUTS)
     assert out["pdq"].dtype == np.uint32 and out["endslice"].dtype == np.int8
+
+
+@pytest.mark.parametrize("likely", [False, True])
+def test_product_maps_match_numpy_bit_for_bit(likely):
+    """``product_maps`` on CPU tensors against the host numpy packaging,
+    every bit, NaN payloads included: random values and the edges of
+    ``hypot`` and of the float16 cast; cropped and contiguous."""
+    out = map_cases.inputs(n=512, nb=4)
+    if not likely:
+        del out["dumo"], out["chisq"]
+    got = l1_to_l2.product_maps({k: torch.from_numpy(v) for k, v in out.items()}, 4)
+    ref = map_cases.numpy_maps(out, 4)
+    assert set(got) == set(ref) == {"err", "var_poisson", "var_rnoise"} | (
+        {"dumo", "chisq"} if likely else set())
+    for k, r in ref.items():
+        g = got[k]
+        assert g.is_contiguous() and g.numpy().dtype == r.dtype and g.shape == r.shape, k
+        np.testing.assert_array_equal(map_cases.bits(g.numpy()), map_cases.bits(r), err_msg=k)
+    # the edges reach the maps: hypot(inf, nan) is inf, NaN stays NaN
+    assert np.isposinf(ref["err"][0, :4]).all() and np.isnan(ref["err"][0, 5])
+    if likely:
+        assert np.isinf(ref["dumo"][1, 2:5]).all() and (ref["dumo"][1, 13] == 0)
+
+
+def _same_tree(a, b, path="tree"):
+    """Two L2 trees field by field: the same keys in the same order,
+    arrays of the same dtype, shape and bits."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and list(a) == list(b), path
+        for k in a:
+            _same_tree(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray), path
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(map_cases.bits(a), map_cases.bits(b), err_msg=path)
+    else:
+        assert type(a) is type(b) and a == b, path
+
+
+@pytest.mark.parametrize("name", ["base", "likely"])
+def test_calibrate_tree_maps_are_the_host_packaging(pairs, name):
+    """``calibrate_tree``'s maps, made beside the core, against the host
+    numpy packaging of its own ``out`` bit for bit, and its tree field by
+    field against ``package_tree`` given ``out`` alone (the maps made from
+    the host arrays); ``out`` keeps the core's keys."""
+    _, _, cfg = pairs[name]
+    pack = calfiles.load_caldir_cached(cfg["CALDIR"])
+    l1 = asdf_lite.open(cfg["IN"])["roman"]
+    area = l1_to_l2.area_factor_from_config(cfg, pack.nside)
+    tree, out = l1_to_l2.calibrate_tree(l1, cfg, pack, area, device="cpu")
+    likely = ("dumo", "chisq") if name == "likely" else ()
+    assert set(out) == set(l1_to_l2.PRODUCT_OUTPUTS + likely)
+    nb = tree["processinfo"]["meta"]["nborder"]
+    ref = map_cases.numpy_maps(out, nb)
+    assert set(ref) == {"err", "var_poisson", "var_rnoise", *likely}
+    for k, r in ref.items():
+        np.testing.assert_array_equal(map_cases.bits(tree["roman"][k]), map_cases.bits(r),
+                                      err_msg=k)
+    assert ("dumo" in tree["roman"]) == bool(likely)
+    prep = l1_to_l2.prepare_inputs(l1, cfg, pack, area, device="cpu")
+    prep["log"] = tree["processinfo"]["log"]  # its timing line
+    _same_tree(l1_to_l2.package_tree(out, prep, l1, cfg), tree)

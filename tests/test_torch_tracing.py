@@ -217,17 +217,18 @@ def two_calls(tmp_path_factory):
     pack = calfiles.load_caldir(caldir)
     l1 = asdf_lite.open(config["IN"])["roman"]
     area = np.ones((N, N), np.float32)
-    snaps, outs = [], []
+    snaps, outs, trees = [], [], []
     with profiling.trace(str(d / "prof")):
         for _ in range(2):
             tree, out = l1_to_l2.calibrate_tree(l1, config, pack, area, device="cpu")
             typefix.fix(tree)
             outs.append(out)
+            trees.append(tree)
             snaps.append(profiling.snapshot())
     events = json.loads((d / "prof" / profiling.TRACE_FILE).read_text())["traceEvents"]
     spans_json = json.loads((d / "prof" / profiling.SPANS_FILE).read_text())
-    return SimpleNamespace(pack=pack, l1=l1, area=area, snaps=snaps, outs=outs,
-                           events=events, spans_json=spans_json)
+    return SimpleNamespace(pack=pack, l1=l1, area=area, snaps=snaps, outs=outs, trees=trees,
+                           config=config, events=events, spans_json=spans_json)
 
 
 def _per_call(two_calls, group):
@@ -252,6 +253,8 @@ def test_two_calls_count_spans_and_calls(two_calls):
     # the host driver's spans and the core's stages, nothing else
     assert all(k.startswith(("host.", "l1_to_l2.")) for k in first), sorted(first)
     assert {"l1_to_l2.saturation", "l1_to_l2.linearity", "l1_to_l2.endslice"} <= set(first)
+    # the product maps, made beside the core's outputs before the copy back
+    assert first["l1_to_l2.maps"] == second["l1_to_l2.maps"] == 1
 
 
 def test_two_calls_count_cache_misses_on_the_first_call_only(two_calls):
@@ -290,9 +293,32 @@ def test_two_calls_count_the_bytes_staged_and_read_back(two_calls):
     planes = 4 * 9 * N * N
     assert first["h2d_bytes"] == per_exposure + sum(
         _sent(a) for a in cal if a is not None) + precal + planes
-    for out, got in zip(two_calls.outs, (first, second)):
-        assert got["d2h_bytes"] == sum(a.nbytes for a in out.values())
+    # the core's outputs and the product maps, in one copy back
+    for out, tree, got in zip(two_calls.outs, two_calls.trees, (first, second)):
+        maps = sum(tree["roman"][k].nbytes for k in ("err", "var_poisson", "var_rnoise"))
+        assert maps == 3 * 4 * (N - 8) ** 2
+        assert got["d2h_bytes"] == sum(a.nbytes for a in out.values()) + maps
     assert "gather_bytes" not in first  # one part: nothing gathered
+
+
+def test_maps_counters_count_where_the_maps_were_made(two_calls):
+    """``maps_host`` once a call where the core ran on the CPU, and once
+    where ``package_tree`` makes the maps from host outputs alone;
+    ``maps_device`` (the card's) never here."""
+    first, second = _per_call(two_calls, "counters")
+    assert first["maps_host"] == second["maps_host"] == 1
+    assert "maps_device" not in two_calls.snaps[-1]["counters"]
+    prep = l1_to_l2.prepare_inputs(two_calls.l1, two_calls.config, two_calls.pack,
+                                   two_calls.area, device="cpu")
+    profiling.reset()
+    with _recording():
+        tree = l1_to_l2.package_tree(two_calls.outs[-1], prep, two_calls.l1, two_calls.config)
+    snap = profiling.snapshot()
+    assert snap["counters"] == {"maps_host": 1}
+    assert snap["spans"]["host.package.maps"]["count"] == 1
+    assert "l1_to_l2.maps" in snap["spans"]
+    for k in ("err", "var_poisson", "var_rnoise"):
+        np.testing.assert_array_equal(tree["roman"][k], two_calls.trees[-1]["roman"][k])
 
 
 def test_chrome_trace_holds_each_host_span_once_a_call(two_calls):

@@ -10,13 +10,29 @@ gets from astropy/galsim/gwcs:
 - detector->science frame flips that negate the appropriate SIP
   coefficients (reference ``sim_to_isim.py:63-160``).
 
-All math follows Calabretta & Greisen (2002) paper II conventions; the
-WCS evaluation is host-side numpy (it is O(ms) metadata work).
+All math follows Calabretta & Greisen (2002) paper II conventions.
+``SIPWCS.pix2world`` / ``pix2sky`` take numpy arrays (host metadata
+work, O(ms)) or torch tensors, with one body for both (:data:`_NUMPY`,
+:data:`_TORCH`); :func:`pixelarea` evaluates it in torch float64 on the
+grid's device.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
+import torch
 
 DEG = np.pi / 180.0
+
+# the elementwise functions of the WCS arithmetic, by array type
+_NUMPY = SimpleNamespace(zeros_like=np.zeros_like, hypot=np.hypot, atan2=np.arctan2,
+                         atan=np.arctan, sin=np.sin, cos=np.cos, mod=np.mod)
+_TORCH = SimpleNamespace(zeros_like=torch.zeros_like, hypot=torch.hypot, atan2=torch.atan2,
+                         atan=torch.atan, sin=torch.sin, cos=torch.cos, mod=torch.remainder)
+
+
+def _fns(x):
+    return _TORCH if isinstance(x, torch.Tensor) else _NUMPY
 
 
 class SIPWCS:
@@ -67,7 +83,7 @@ class SIPWCS:
     # -- SIP polynomial ----------------------------------------------------
     @staticmethod
     def _sip_poly(coefs, u, v):
-        out = np.zeros_like(u)
+        out = _fns(u).zeros_like(u)
         if coefs:
             for (p, q), c in coefs.items():
                 out = out + c * (u**p) * (v**q)
@@ -76,13 +92,14 @@ class SIPWCS:
     # -- projections -------------------------------------------------------
     def _native_from_plane(self, xi, eta):
         """Intermediate world coords (deg) -> native spherical (phi, theta)."""
-        R = np.hypot(xi, eta)
-        phi = np.arctan2(xi, -eta)
+        f = _fns(xi)
+        R = f.hypot(xi, eta)
+        phi = f.atan2(xi, -eta)
         with np.errstate(divide="ignore"):
             if self.ctype == "TAN":
-                theta = np.arctan2(180.0 / np.pi, R)
+                theta = f.atan2(f.zeros_like(R) + 180.0 / np.pi, R)
             else:  # STG
-                theta = np.pi / 2.0 - 2.0 * np.arctan(np.pi * R / 360.0)
+                theta = np.pi / 2.0 - 2.0 * f.atan(np.pi * R / 360.0)
         return phi, theta
 
     def _plane_from_native(self, phi, theta):
@@ -98,22 +115,23 @@ class SIPWCS:
         Zenithal projection: the fiducial point (CRVAL) is the native
         pole; LONPOLE is the native longitude of the celestial pole.
         """
+        f = _fns(theta)
         ap = self.crval[0] * DEG
         dp = self.crval[1] * DEG
         phip = self.lonpole * DEG
         sdp, cdp = np.sin(dp), np.cos(dp)
-        st, ct = np.sin(theta), np.cos(theta)
+        st, ct = f.sin(theta), f.cos(theta)
         dphi = phi - phip
-        sdec = st * sdp + ct * cdp * np.cos(dphi)
-        y = -ct * np.sin(dphi)
-        x = st * cdp - ct * sdp * np.cos(dphi)
+        sdec = st * sdp + ct * cdp * f.cos(dphi)
+        y = -ct * f.sin(dphi)
+        x = st * cdp - ct * sdp * f.cos(dphi)
         # arctan2(sin dec, |cos dec|) instead of arcsin(sin dec): the
         # rotation is orthogonal, so hypot(x, y) == cos(dec) exactly —
         # arcsin loses sqrt(eps) (~1e-8 rad, ~4e-4 px) near the pole,
         # i.e. exactly at the reference pixel
-        dec = np.arctan2(sdec, np.hypot(x, y))
-        ra = ap + np.arctan2(y, x)
-        return np.mod(ra, 2 * np.pi), dec
+        dec = f.atan2(sdec, f.hypot(x, y))
+        ra = ap + f.atan2(y, x)
+        return f.mod(ra, 2 * np.pi), dec
 
     def _native_from_celestial(self, ra, dec):
         ap = self.crval[0] * DEG
@@ -135,8 +153,15 @@ class SIPWCS:
     # -- public API --------------------------------------------------------
     def pix2world(self, x, y):
         """0-based pixel coords -> (ra, dec) in degrees."""
-        x = np.asarray(x, dtype=float)
-        y = np.asarray(y, dtype=float)
+        ra, dec = self.pix2sky(x, y)
+        return ra / DEG, dec / DEG
+
+    def pix2sky(self, x, y):
+        """0-based pixel coords -> (ra, dec) in radians: numpy arrays, or
+        torch tensors on their device in their dtype."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x, dtype=float)
+            y = np.asarray(y, dtype=float)
         u = x - self.crpix[0]
         v = y - self.crpix[1]
         up = u + self._sip_poly(self.a, u, v)
@@ -144,8 +169,7 @@ class SIPWCS:
         xi = self.cd[0, 0] * up + self.cd[0, 1] * vp
         eta = self.cd[1, 0] * up + self.cd[1, 1] * vp
         phi, theta = self._native_from_plane(xi, eta)
-        ra, dec = self._celestial_from_native(phi, theta)
-        return ra / DEG, dec / DEG
+        return self._celestial_from_native(phi, theta)
 
     def world2pix(self, ra, dec, niter=12):
         """(ra, dec) degrees -> 0-based pixel coords (iterative SIP inverse)."""
@@ -195,34 +219,38 @@ class SIPWCS:
         return cards
 
 
-def pixelarea(wcs, N=4088):
-    """(N, N) array of pixel solid angles in steradians.
+def pixelarea(wcs, N=4088, device=None):
+    """(N, N) pixel solid angles in steradians, computed in torch float64
+    on ``device``: a tensor there, or without ``device`` a numpy array
+    (computed on the CPU).
 
     Same equal-area azimuthal reprojection + central-difference Jacobian
     as the reference (``coordutils.py:59-82``), with the projection pole
     chosen in the SAME hemisphere as the first pixel (so the field sits
     near the pole, where the equal-area mapping is well-conditioned —
     do not "fix" this to the opposite pole, which would put the field
-    near the degenerate antipode).
+    near the degenerate antipode).  The hemisphere is read on the host
+    from that one pixel, so the device work launches without a sync.
+    The Jacobian differences coordinates of order 1 over 2 pixels
+    (about 1e-6 rad): float64 keeps about ten digits of it, float32 not one.
     """
-    sp = np.linspace(-1, N, N + 2)
-    xx, yy = np.meshgrid(sp, sp)
-    ra, dec = wcs.pix2world(xx.ravel(), yy.ravel())
-    ra = ra * DEG
-    dec = dec * DEG
+    dev = torch.device("cpu" if device is None else device)
+    north = float(wcs.pix2sky(-1.0, -1.0)[1]) > 0
+    sp = torch.linspace(-1, N, N + 2, dtype=torch.float64, device=dev)
+    yy, xx = torch.meshgrid(sp, sp, indexing="ij")
+    ra, dec = wcs.pix2sky(xx.reshape(-1), yy.reshape(-1))
 
-    theta = np.pi / 2.0 + dec
-    if dec[0] > 0:
-        theta = np.pi / 2.0 - dec
-    rho = 2.0 * np.sin(theta / 2.0)
-    u = (rho * np.cos(ra)).reshape((N + 2, N + 2))
-    v = (rho * np.sin(ra)).reshape((N + 2, N + 2))
+    theta = np.pi / 2.0 - dec if north else np.pi / 2.0 + dec
+    rho = 2.0 * torch.sin(theta / 2.0)
+    u = (rho * torch.cos(ra)).reshape((N + 2, N + 2))
+    v = (rho * torch.sin(ra)).reshape((N + 2, N + 2))
 
     J11 = (u[1:-1, 2:] - u[1:-1, :-2]) / 2.0
     J12 = (u[2:, 1:-1] - u[:-2, 1:-1]) / 2.0
     J21 = (v[1:-1, 2:] - v[1:-1, :-2]) / 2.0
     J22 = (v[2:, 1:-1] - v[:-2, 1:-1]) / 2.0
-    return np.abs(J11 * J22 - J21 * J12)
+    area = torch.abs(J11 * J22 - J21 * J12)
+    return area.numpy() if device is None else area
 
 
 # --------------------------------------------------------------------------

@@ -214,10 +214,11 @@ def calibrate_fpa(configs, mesh=None, write=True, max_workers=8, profile=False,
     over the mesh.
 
     A host thread pool reads each L1 tree, its cal pack
-    (:func:`..io.calfiles.load_caldir_cached`) and its pixel-area map.
-    SCA ``i`` belongs to mesh entry ``i % len(mesh)``, which prepares
-    and stages it (:func:`..pipeline.l1_to_l2.prepare_inputs`) only when
-    its turn comes, with at most ``prefetch`` SCAs staged at a time,
+    (:func:`..io.calfiles.load_caldir_cached`) and its pixel-area map
+    (made on the SCA's mesh entry).  SCA ``i`` belongs to mesh entry
+    ``i % len(mesh)``, which prepares and stages it
+    (:func:`..pipeline.l1_to_l2.prepare_inputs`) only when its turn
+    comes, with at most ``prefetch`` SCAs staged at a time,
     runs the single-SCA core, brings its outputs and their product maps
     to the host in one sync (:func:`..pipeline.l1_to_l2.outputs_to_host`)
     and drops the staged bundle; the cal packs stay on each device as
@@ -251,7 +252,7 @@ def calibrate_fpa(configs, mesh=None, write=True, max_workers=8, profile=False,
         config = configs[i]
         pack = calfiles.load_caldir_cached(config["CALDIR"])
         l1 = asdf_lite.open(config["IN"])["roman"]
-        area = l1_to_l2.area_factor_from_config(config, pack.nside)
+        area = l1_to_l2.area_factor_from_config(config, pack.nside, device=mesh[i % len(mesh)])
         loaded_at[i] = time.perf_counter()
         return l1, pack, area
 

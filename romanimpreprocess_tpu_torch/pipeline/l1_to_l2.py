@@ -13,14 +13,15 @@ device core (the cube never leaves the device):
   Legendre sky subtraction -> endslice map.
 
 host wrapper: YAML config, L1 ASDF read, CALDIR load (once), WCS
-sidecar -> pixel-area map, plan precomputation, staging onto the
-device, L2 ASDF/FITS write, process log.
+sidecar -> pixel-area map (made on the device), plan precomputation,
+staging onto the device, L2 ASDF/FITS write, process log.
 
 While a ``torch.profiler`` records, the host wrapper's steps are spans
-of :mod:`..utils.profiling` named ``host.<step>`` (``host.calibrate``,
-``host.prepare`` with ``.plan`` and ``.medgain``, ``host.stage``,
-``host.ipc_precal``, ``host.to_host``, ``host.package`` with ``.maps``,
-``.refdata`` and ``.meta``), the core's stages spans named
+of :mod:`..utils.profiling` named ``host.<step>`` (``host.area``, the
+sidecar's area map, its device work in the range ``l1_to_l2.area``;
+``host.calibrate``, ``host.prepare`` with ``.plan`` and ``.medgain``,
+``host.stage``, ``host.ipc_precal``, ``host.to_host``, ``host.package``
+with ``.maps``, ``.refdata`` and ``.meta``), the core's stages spans named
 ``l1_to_l2.<stage>``, and the copies (:mod:`..io.staging`) are counted
 (``h2d_bytes``, ``d2h_bytes``, ``gather_bytes``).
 
@@ -672,7 +673,7 @@ def calibrateimage(config, verbose=False, return_arrays=False, device=None):
     device = resolve_device(device)
     pack = calfiles.load_caldir_cached(config["CALDIR"])
     l1 = asdf_lite.open(config["IN"])["roman"]
-    area_factor = area_factor_from_config(config, pack.nside)
+    area_factor = area_factor_from_config(config, pack.nside, device=device)
     tree, out = calibrate_tree(l1, config, pack, area_factor, device=device)
     typefix.fix(tree)  # schema-compat dummy fields (reference writes them)
     asdf_lite.AsdfFile(tree).write_to(config["OUT"])
@@ -695,13 +696,26 @@ def calibrateimage(config, verbose=False, return_arrays=False, device=None):
     return None
 
 
-def area_factor_from_config(config, nside):
-    """FITSWCS sidecar -> pixel-area / Omega_ideal map (unit if absent)."""
+@profiling.span("host.area")
+def area_factor_from_config(config, nside, device=None):
+    """FITSWCS sidecar -> float32 pixel-area / Omega_ideal map (unit if
+    absent): a tensor on ``device``, or without ``device`` a numpy array.
+
+    The map is :func:`..ops.wcsutils.pixelarea` in float64 on ``device``
+    (the CPU without one), in the device range ``l1_to_l2.area``, counted
+    as ``area_device`` on a CUDA device and ``area_host`` elsewhere.
+    Every exposure has a WCS solution of its own, so no map is kept."""
     thewcs = wcs_from_config(config)
     if thewcs is None:
-        return np.ones((nside, nside), dtype=np.float32)
+        if device is None:
+            return np.ones((nside, nside), dtype=np.float32)
+        return torch.ones((nside, nside), dtype=torch.float32, device=device)
     w = wcsutils.SIPWCS.from_header(thewcs, zero_based=True)
-    return (wcsutils.pixelarea(w, N=nside) / pars.Omega_ideal).astype(np.float32)
+    dev = torch.device("cpu" if device is None else device)
+    with profiling.span("l1_to_l2.area"):
+        area = (wcsutils.pixelarea(w, N=nside, device=dev) / pars.Omega_ideal).to(torch.float32)
+    profiling.count("area_device" if dev.type == "cuda" else "area_host")
+    return area.numpy() if device is None else area
 
 
 @profiling.span("host.calibrate")
@@ -753,6 +767,8 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
     one SCA, staged onto ``device`` (default ``cuda``).  Returns a dict;
     ``arr`` holds tensors, cal-pack arrays staged once per device;
     ``kernels`` the :func:`..config.resolve_kernels` that ``cfg`` reads.
+    ``area_factor`` is a host array, staged for the call, or a tensor
+    (:func:`area_factor_from_config` with a device), taken where it lies.
 
     The cal pack's arrays, its IPC precal and its kernel planes are one
     lookup of :data:`_DEVICE_CACHE`: held on the device whole, or (where
@@ -894,8 +910,8 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
             return torch.zeros(shape, dtype=dtype, device=device)
         return stage(a, device, pack=held)
 
-    def exp(a):  # per-exposure array
-        return stage(a, device, cache=False)
+    def exp(a):  # per-exposure array; a tensor (a map made on the device) as it is
+        return a.to(device) if isinstance(a, torch.Tensor) else stage(a, device, cache=False)
 
     arr = {
         "opt_slope": send(torch.tensor(

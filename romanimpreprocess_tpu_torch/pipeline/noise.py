@@ -235,7 +235,7 @@ def _make_noise_cube_device(config, seed=None, *, pack=None, base_l1=None,
 
     seed = int(config["NOISE"]["SEED"] if seed is None else seed)
     pack, base_l1, base_l2 = _load_inputs(config, pack, base_l1, base_l2)
-    area_factor = l1_to_l2.area_factor_from_config(config, pack.nside)
+    area_factor = l1_to_l2.area_factor_from_config(config, pack.nside, device=device)
     prep = l1_to_l2.prepare_inputs(base_l1, config, pack, area_factor, device=device)
     run = noise_core.make_staged_noise_runner(
         prep, pack, list(config["NOISE"]["LAYER"]), config)
@@ -257,7 +257,7 @@ def _make_noise_cube_host(config, seed=None, *, pack=None, base_l1=None,
     nb = pars.nborder
     na = nside - 2 * nb
     act = slice(nb, nside - nb)
-    area_factor = l1_to_l2.area_factor_from_config(config, nside)
+    area_factor = l1_to_l2.area_factor_from_config(config, nside, device=device)
     kernels = resolve_kernels(config, device)
 
     layers = config["NOISE"]["LAYER"]

@@ -493,7 +493,7 @@ class Image2D:
             flat = np.clip(flat, 0.0, 2 - 2**-21)
             dark_e = np.clip(dark_e, -0.1 * flat, None)
 
-        area = wcsutils.pixelarea(self.wcs, N=na)
+        area = wcsutils.pixelarea(self.wcs, N=na, device=device).cpu().numpy()
         flat_witharea = flat / (area / pars.Omega_ideal)
         C = float(config.get("CNORM", 1.0))
         scene_rate = C * gain_act / pars.g_ideal * self.image * flat_witharea

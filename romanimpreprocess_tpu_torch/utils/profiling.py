@@ -29,6 +29,9 @@ memory, from a CUDA device),
 ``maps_device`` / ``maps_host`` (SCAs whose L2 product maps,
 :func:`..pipeline.l1_to_l2.product_maps`, were made on a CUDA device /
 on the host),
+``area_device`` / ``area_host`` (pixel-area maps,
+:func:`..pipeline.l1_to_l2.area_factor_from_config`, made on a CUDA
+device / on the host, the span ``host.area`` around each),
 ``cache.<name>.hit`` / ``cache.<name>.miss`` (the lookups of each
 :class:`.hostcache.BoundedCache` and :class:`.hostcache.PackCache`),
 ``pack_hits`` / ``pack_misses`` (the per-pack lookups of a

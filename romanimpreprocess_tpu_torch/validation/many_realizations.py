@@ -118,7 +118,7 @@ def run_many(config1, config2, nrun, outfile=None, seed_step=10, device=None):
         sim_to_l1.run_config(config1, device=device)
         l1 = asdf_lite.open(config2["IN"])["roman"]
         if area_factor is None:
-            area_factor = l1_to_l2.area_factor_from_config(config2, nside)
+            area_factor = l1_to_l2.area_factor_from_config(config2, nside, device=device)
         tree, _ = l1_to_l2.calibrate_tree(l1, config2, pack, area_factor, device=device)
         r = tree["roman"]
         l1d = np.asarray(l1["data"], np.float32)
@@ -177,7 +177,7 @@ def run_many_mesh(config1, config2, nrun, outfile=None, mesh=None, seed=None):
     nb = pars.nborder
     act = slice(nb, nside - nb)
     slope_ideal = _ideal_slope(config1, nside, act)
-    area_factor = l1_to_l2.area_factor_from_config(config2, nside)
+    area_factor = l1_to_l2.area_factor_from_config(config2, nside, device=dev0)
     l1 = asdf_lite.open(config2["IN"])["roman"]
     prep = l1_to_l2.prepare_inputs(l1, config2, pack, area_factor, device=dev0)
     st = noise_core._Stages(prep, pack, config2)

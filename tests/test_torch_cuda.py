@@ -18,7 +18,8 @@ behind its four entry points (against the twin and against each other),
 the frame IPC inverse (the same kernel in the Neumann order; signed
 zeros and NaN positions too) and the L1 -> L2 product are held bit for
 bit.  The
-pink transform (the wgmma path and, below length 2^16, the mma.sync
+pixel-area map made on the card (float64) against the CPU's: within the
+benchmark's ``area_gap`` limit.  The pink transform (the wgmma path and, below length 2^16, the mma.sync
 path) shares its twin's cast points and sums in another order:
 difference std < 1e-2 and max < 5e-2 of the frame std (the JAX
 package's gate for its two paths).  The sim with kernels against the
@@ -29,9 +30,11 @@ on the card against the plain path on the CPU: the slice's parity gates
 """
 
 import gc
+import json
 import sys
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import map_cases
 import numpy as np
@@ -40,12 +43,12 @@ import torch
 
 from romanimpreprocess_tpu_torch import synth
 from romanimpreprocess_tpu_torch.dqflags import i32, pixel
-from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, staging
+from romanimpreprocess_tpu_torch.io import asdf_lite, calfiles, fits_lite, staging
 from romanimpreprocess_tpu_torch import benchlib
 from romanimpreprocess_tpu_torch.ops import (contract_cuda, invlin_cuda, ipc,
                                              ipc_cuda, ipc_slab, linearity,
                                              linearity_cuda, median_cuda, pink,
-                                             pink_cuda, rand, sky)
+                                             pink_cuda, rand, sky, wcsutils)
 from romanimpreprocess_tpu_torch.pipeline import l1_to_l2, noise, sim_to_l1
 from romanimpreprocess_tpu_torch.utils import parity, profiling, time_frame
 from romanimpreprocess_tpu_torch.utils.rows import Rows
@@ -231,6 +234,40 @@ def test_calibrateimage_kernels_match_plain_path(cuda_device, tmp_path):
     for k in ("skycoefs", "endslice"):
         np.testing.assert_array_equal(np.asarray(got["processinfo"][k]),
                                       np.asarray(ref["processinfo"][k]), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_area_map_on_cuda_matches_cpu_at_4096(cuda_device, tmp_path):
+    """``calibrateimage``'s pixel-area map (``area_factor_from_config``,
+    float64 arithmetic) made on the card at 4096^2 against the CPU's,
+    within the benchmark's ``area_gap`` limit
+    (``gpubench/limits/l2_classic_wcsarea.json``), counted ``area_device``,
+    with no host copy."""
+    limits = Path(__file__).resolve().parents[1] / "gpubench/limits/l2_classic_wcsarea.json"
+    limit = json.loads(limits.read_text())["area_gap"]
+    n, s, roll = 4096, 0.11 / 3600.0, np.radians(57.0)
+    rng = np.random.default_rng(23)
+    sip = {(p, q): float(rng.normal(0.0, 2e-7 if p + q == 2 else 5e-11))
+           for p in range(4) for q in range(4 - p) if p + q >= 2}
+    cd = [[-s * np.cos(roll), s * np.sin(roll)], [s * np.sin(roll), s * np.cos(roll)]]
+    w = wcsutils.SIPWCS([2043.5, 2043.5], cd, [61.3, -37.9], a_coefs=sip,
+                        b_coefs={k: -0.7 * v for k, v in sip.items()})
+    hdr = fits_lite.Header()
+    for k, v in w.to_cards().items():
+        hdr[k] = v
+    hdr.tofile(str(tmp_path / "L1_asdf_wcshead.txt"), overwrite=True)
+    config = {"FITSWCS": str(tmp_path / "L1_asdf_wcshead.txt")}
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = l1_to_l2.area_factor_from_config(config, n, device=cuda_device)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters.get("area_device") == 1 and "area_host" not in counters
+    assert "d2h_bytes" not in counters and "h2d_bytes" not in counters
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and got.shape == (n, n)
+    want = l1_to_l2.area_factor_from_config(config, n, device="cpu").to(torch.float64)
+    gap = float(((got.cpu().double() - want).abs() / want).max())
+    assert gap <= limit, gap
 
 
 @pytest.mark.cuda

@@ -9,6 +9,20 @@ is, other host dtypes as float32.  Copies to the device count
 ``h2d_bytes``, the counted copies back (:func:`fetch`, :func:`to_host`)
 ``d2h_bytes`` (:mod:`..utils.profiling`).
 
+A per-call copy to a CUDA device (``stage(..., cache=False)``, and so
+:func:`place`) goes through page-locked host memory
+(``h2d_pinned_bytes``): one block from torch's caching host allocator,
+filled slice by slice along the leading axis (:data:`SLICE_BYTES`) by
+``copy_`` on torch's intra-op threads, the wire format's conversion in
+that one pass, each slice's device copy issued on the device's current
+stream as soon as it is filled and not waited for.  The host has read
+the caller's array when :func:`stage` returns; the allocator hands the
+block out again only once its copies have run, and the kernels that
+read the tensor queue behind them on the same stream.  A cal pack's
+copies (a cached :func:`stage`'s miss, the IPC precal, the kernel
+planes) run once, at set-up, through :func:`send` from pageable memory,
+and hold no page-locked host memory.
+
 A counted copy back from a CUDA device lands in page-locked host memory
 from torch's caching host allocator (``d2h_pinned_bytes``): every copy
 of a call is issued without waiting, then one sync of the current stream
@@ -67,24 +81,70 @@ _DEVICE_CACHE = hostcache.PackCache("device_arrays", budget=card_budget)
 _DQ_OUTPUTS = ("pdq", "rdq")
 
 
-def from_host(a):
-    """A host array as a CPU tensor in its wire format, sharing its
-    buffer where the format allows (uint16 as int16 here)."""
+# the wire formats of the unsigned counts and DQ planes (bit patterns);
+# any other dtype crosses as float32
+_WIRE = {np.dtype(np.uint16): (np.int16, torch.int16),
+         np.dtype(np.uint32): (np.int32, torch.int32)}
+
+# host dtypes torch views in place (native byte order); others are
+# converted by numpy first
+_VIEWABLE = frozenset(np.dtype(t) for t in (
+    np.bool_, np.uint8, np.int8, np.int16, np.int32, np.int64,
+    np.float16, np.float32, np.float64))
+
+
+def _source(a):
+    """A host array as a CPU tensor viewing its buffer (uint16 as int16,
+    uint32 as int32), and the torch dtype it crosses as."""
     arr = np.asarray(a)
+    wire, dtype = _WIRE.get(arr.dtype, (np.float32, torch.float32))
+    if arr.dtype in _WIRE:
+        arr = arr.view(wire)
+    if arr.dtype not in _VIEWABLE or any(s < 0 for s in arr.strides):
+        arr = np.ascontiguousarray(arr, wire)
     with warnings.catch_warnings():
         # arrays read from ASDF are read-only; nothing writes to a staged
         # tensor, so the buffer is shared rather than copied
         warnings.filterwarnings("ignore", "The given NumPy array is not writable")
-        if arr.dtype in (np.uint32, np.uint16):
-            return torch.from_numpy(np.ascontiguousarray(arr).view(
-                np.int32 if arr.dtype == np.uint32 else np.int16))
-        return torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        return torch.from_numpy(arr), dtype
+
+
+def from_host(a):
+    """A host array as a CPU tensor in its wire format, sharing its
+    buffer where the format allows (uint16 as int16 here)."""
+    src, dtype = _source(a)
+    return src.to(dtype).contiguous()
 
 
 def send(t, device):
-    """The host tensor ``t`` copied to ``device``, counted as ``h2d_bytes``."""
+    """The host tensor ``t`` copied to ``device`` from pageable memory,
+    counted as ``h2d_bytes``."""
     profiling.count("h2d_bytes", t.nbytes)
     return t.to(device)
+
+
+#: bytes of a slice of a per-call copy: the host fills slice g + 1 of
+#: the page-locked block while the card copies slice g (one resultant of
+#: a 4096^2 L1 cube, in int16, is 32 MiB)
+SLICE_BYTES = 32 * 2**20
+
+
+def _send_pinned(a, device):
+    """The host array ``a`` in its wire format on the CUDA ``device``,
+    through a recycled page-locked block: filled a slice at a time (the
+    conversion to the wire format in the same pass), each slice's copy
+    issued without a wait (``h2d_bytes``, ``h2d_pinned_bytes``)."""
+    src, dtype = _source(a)
+    out = torch.empty(src.shape, dtype=dtype, device=device)
+    block = torch.empty(src.shape, dtype=dtype, pin_memory=True)
+    src, dst, host = (t.unsqueeze(0) if t.dim() == 0 else t for t in (src, out, block))
+    step = max(1, SLICE_BYTES * len(host) // max(1, host.nbytes))
+    for i in range(0, len(host), step):
+        host[i:i + step].copy_(src[i:i + step])
+        dst[i:i + step].copy_(host[i:i + step], non_blocking=True)
+    profiling.count("h2d_bytes", block.nbytes)
+    profiling.count("h2d_pinned_bytes", block.nbytes)
+    return out
 
 
 def stage(a, device, cache=True, pack=None):
@@ -93,19 +153,24 @@ def stage(a, device, cache=True, pack=None):
     once per device (``cache``), with the cal pack whose lookup ``pack``
     is (:meth:`..utils.hostcache.PackCache.pack`) or loose.  A copy (not
     a cache hit) is the span ``host.stage``; a cached one counts
-    ``pack_staged_bytes``."""
+    ``pack_staged_bytes``.  An uncached copy to a CUDA device goes
+    through page-locked memory and is not waited for; on the CPU the
+    tensor shares the host array's buffer."""
     ck = (id(a), str(device))
     if cache:
         hit = _DEVICE_CACHE.get(ck, pack=pack)
         if hit is not None:
             return hit[0]
     with profiling.span("host.stage"):
-        h = from_host(a)
-        t = send(h, device)
+        if not cache and torch.device(device).type == "cuda":
+            t = _send_pinned(a, device)
+        else:
+            t = send(from_host(a), device)
+        sent = t.nbytes
         if t.dtype == torch.int16:  # uint16 counts, widened on the device
             t = t.to(torch.int32) & 0xFFFF
     if cache:
-        profiling.count("pack_staged_bytes", h.nbytes)
+        profiling.count("pack_staged_bytes", sent)
         _DEVICE_CACHE.put(ck, (t, a), t.nbytes, device, pack=pack)
     return t
 

@@ -596,7 +596,7 @@ def ipc_precal(flat, dark_slope, gain, ipc_kernel, nborder, device, pack=None):
         )
         dslope_act = np.asarray(dark_slope[nb:-nb, nb:-nb], np.float32)
         stacked = np.stack([dslope_act * gain_act, flat_clipped * gain_flat])
-        kernel = stage(ipc_kernel, device, cache=False)
+        kernel = send(from_host(ipc_kernel), device)
         corr = ipc.ipc_rev(send(torch.from_numpy(stacked), device), kernel)
         out = (corr[0] / send(torch.from_numpy(gain_act), device),
                corr[1] / send(torch.from_numpy(gain_flat), device))
@@ -617,7 +617,7 @@ def _pack_planes(kind, kernel, build, device, pack):
     if hit is not None:
         return hit[0]
     planes = build()
-    t = stage(planes, device, cache=False)
+    t = send(from_host(planes), device)
     profiling.count("pack_staged_bytes", planes.nbytes)
     return _DEVICE_CACHE.put(ck, (t, kernel), t.nbytes, device, pack=pack)[0]
 
@@ -914,9 +914,8 @@ def prepare_inputs(l1, config, pack, area_factor=None, device=None):
         return a.to(device) if isinstance(a, torch.Tensor) else stage(a, device, cache=False)
 
     arr = {
-        "opt_slope": send(torch.tensor(
-            float(np.float32(opt_slope if opt_slope is not None else 0.0)),
-            dtype=torch.float32), device),
+        "opt_slope": stage(np.float32(opt_slope if opt_slope is not None else 0.0),
+                           device, cache=False).reshape(()),
         "data": exp(data).to(torch.float32),
         "amp33": (exp(l1["amp33"]).to(torch.float32) if "amp33" in l1
                   else cal(None, (ngrp, nside, channelwidth))),

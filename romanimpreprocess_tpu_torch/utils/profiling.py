@@ -22,7 +22,9 @@
   and the recorder's :func:`snapshot` of the body (``spans.json``).
 
 The counters the program keeps: ``h2d_bytes`` (host -> device copies,
-:mod:`..io.staging`), ``d2h_bytes`` (the counted copies back),
+:mod:`..io.staging`), ``h2d_pinned_bytes`` (those of them that went
+through page-locked host memory, to a CUDA device: the per-call copies),
+``d2h_bytes`` (the counted copies back),
 ``d2h_pinned_bytes`` (those of them that went through page-locked host
 memory, from a CUDA device),
 ``gather_bytes`` (rows the row-sharded core concatenates across slabs),

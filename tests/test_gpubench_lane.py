@@ -288,3 +288,27 @@ def test_pinned_share_reader(monkeypatch, call_span):
     assert read(SimpleNamespace(spans=None)) is None
     del snap["counters"]["d2h_pinned_bytes"]
     assert read(two) is None
+
+
+@pytest.mark.parametrize("call_span", ["host.calibrate", "host.lane"])
+def test_h2d_pinned_share_reader(monkeypatch, call_span):
+    """``staging.h2d_pinned_pct`` reads the share of the copies to the
+    device that went through page-locked memory over the traced calls of
+    either entry: 100, a part, and nothing where the counter is absent (a
+    program without it) or the calls do not match."""
+    from types import SimpleNamespace
+
+    from gpubench import program_spans
+
+    snap = {"spans": {call_span: {"count": 2, "total_ms": 900.0, "sys_ms": 0.0}},
+            "counters": {"h2d_bytes": 4e6, "h2d_pinned_bytes": 4e6}}
+    monkeypatch.setattr(program_spans, "snapshot", lambda: snap)
+    read = spec.reader("staging.h2d_pinned_pct")
+    two = SimpleNamespace(spans=SimpleNamespace(calls=[{}, {}]))
+    assert read(two) == pytest.approx(100.0)
+    snap["counters"]["h2d_pinned_bytes"] = 1e6
+    assert read(two) == pytest.approx(25.0)
+    assert read(SimpleNamespace(spans=SimpleNamespace(calls=[{}, {}, {}]))) is None
+    assert read(SimpleNamespace(spans=None)) is None
+    del snap["counters"]["h2d_pinned_bytes"]
+    assert read(two) is None

@@ -1000,6 +1000,165 @@ def _same_as_numpy(got, ref, name):
                                   err_msg=name)
 
 
+def _pageable(a, device):
+    """The copy to the device as it was before page-locked staging: the
+    wire format made by numpy (uint16 and uint32 viewed as int16 and
+    int32, anything else converted to float32), sent from pageable
+    memory, uint16 widened on the device."""
+    a = np.asarray(a)
+    if a.dtype in (np.uint16, np.uint32):
+        w = np.ascontiguousarray(a).view(np.int16 if a.dtype == np.uint16 else np.int32)
+    else:
+        w = np.ascontiguousarray(a, np.float32)
+    t = torch.from_numpy(w).to(device)
+    return t.to(torch.int32) & 0xFFFF if t.dtype == torch.int16 else t
+
+
+def _stage_case(name):
+    """A per-call host array of the kind ``name``, at full size where the
+    L1 cube is."""
+    rng = np.random.default_rng(24)
+    if name == "uint16_cube":
+        return rng.integers(0, 2**16, (8, 4096, 4096), dtype=np.uint16)
+    if name == "uint32_dq":
+        return rng.integers(0, 2**32, (4096, 4096), dtype=np.uint32)
+    if name == "float32_bits":
+        return rng.integers(0, 2**32, (3, 2048, 2048), dtype=np.uint32).view(np.float32)
+    if name == "float64":
+        with np.errstate(all="ignore"):
+            a = np.ldexp(rng.standard_normal((2048, 2048)),
+                         rng.integers(-1100, 1100, (2048, 2048)))
+        a[0, :4] = [np.nan, -np.inf, np.inf, -0.0]
+        return a
+    if name == "uint16_strided":
+        return rng.integers(0, 2**16, (8, 2048, 4096), dtype=np.uint16)[:, ::2, 1::3]
+    if name == "float32_transposed":
+        return rng.standard_normal((4096, 2048), dtype=np.float32).T
+    if name == "float32_reversed":
+        return rng.standard_normal((6, 1024, 1024), dtype=np.float32)[::-1]
+    if name == "zero_d":
+        return np.float32(-3.75)
+    # 16 MiB planes, two a slice: slices of 2, 2 and 1
+    assert name == "ragged_split"
+    return rng.standard_normal((5, 1024, 4096), dtype=np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["uint16_cube", "uint32_dq", "float32_bits", "float64",
+                                  "uint16_strided", "float32_transposed", "float32_reversed",
+                                  "zero_d", "ragged_split"])
+def test_stage_through_pinned_memory_bit_for_bit(cuda_device, name):
+    """An uncached ``stage`` to the card (through page-locked blocks, slice
+    by slice) gives what the pageable copy gave, bit for bit, in the
+    array's shape, every byte counted on both counters."""
+    a = _stage_case(name)
+    with np.errstate(over="ignore"):  # float64 beyond float32's range
+        want = _pageable(a, cuda_device)
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = staging.stage(a, cuda_device, cache=False)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters["h2d_pinned_bytes"] == counters["h2d_bytes"] == staging.from_host(a).nbytes
+    assert got.device.type == "cuda" and got.dtype == want.dtype and got.shape == np.shape(a)
+    bits = torch.int32 if got.dtype == torch.float32 else got.dtype
+    assert torch.equal(got.reshape(-1).view(bits), want.reshape(-1).view(bits))
+
+
+@pytest.mark.cuda
+def test_stage_frees_the_host_array_on_return(cuda_device):
+    """Once ``stage`` returns, the caller may overwrite or free its array
+    before any sync: the tensor on the card keeps what was staged."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 2**16, (8, 4096, 4096), dtype=np.uint16)
+    want = torch.from_numpy(a.view(np.int16).copy())
+    t = staging.stage(a, cuda_device, cache=False)
+    a[...] = 0
+    b = rng.standard_normal((4, 4096, 4096), dtype=np.float32)
+    want_b = torch.from_numpy(b.copy())
+    tb = staging.place(b, cuda_device)
+    del b
+    gc.collect()
+    junk = [np.full((4, 4096, 4096), np.nan, np.float32) for _ in range(2)]
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(t.to(torch.int16).cpu(), want)
+    assert torch.equal(tb.cpu(), want_b)
+    del junk
+
+
+@pytest.mark.cuda
+def test_stage_recycles_its_pinned_block(cuda_device):
+    """Twenty uncached stages of one size after the first make no new
+    page-locked block: each call's block is handed out again once its
+    copies have run (a call's own sync, here after each stage)."""
+    a = np.zeros((8, 2048, 4096), np.uint16)
+
+    def once(i):
+        a[-1, -1, -1] = i
+        t = staging.stage(a, cuda_device, cache=False)
+        torch.cuda.current_stream(cuda_device).synchronize()
+        return int(t[-1, -1, -1]) == i and not bool(t[:-1].any())
+
+    assert once(0)  # the first makes the block (and the reads' own)
+    made = _pinned_blocks()
+    assert all(once(i) for i in range(1, 21))
+    assert _pinned_blocks() == made
+
+
+@pytest.mark.cuda
+def test_stage_from_two_threads_gives_each_its_own(cuda_device):
+    """Uncached stages from two threads at once (``parallel``'s lanes):
+    each thread's tensor holds its own array, call after call."""
+    n = 40
+
+    def work(k):
+        out = []
+        for i in range(n):
+            v = 1000 * k + i
+            t = staging.stage(np.full((4, 512, 1024), v, np.uint16), cuda_device, cache=False)
+            f = staging.place(np.full((512, 1024), v + 0.5, np.float64), cuda_device)
+            out.append(bool((t == v).all() and (f == v + 0.5).all()))
+        return out
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(work, k) for k in (1, 2)]
+            results = [f.result(timeout=120) for f in futs]
+    finally:
+        sys.setswitchinterval(interval)
+    assert all(all(r) for r in results)
+
+
+@pytest.mark.cuda
+def test_prepare_inputs_stages_every_call_through_pinned_memory(cuda_device, tmp_path):
+    """Once the cal pack is on the card, every byte ``prepare_inputs`` sends
+    (the L1 cube, amp33, the area map, the small per-call arrays, the
+    amp33 slope) goes through page-locked memory."""
+    d = str(tmp_path)
+    rp = synth.READ_PATTERN_DEFAULT
+    caldir = synth.make_cal_files(d + "/cal", rp, nside=64, seed=5)
+    cal = synth.synth_cal_arrays(64, rp, seed=5)
+    synth.write_l1_file(d + "/L1.asdf", synth.synth_l1_cube(cal, rp, rate_dn_s=10.0, nborder=4),
+                        rp, amp33=synth.synth_amp33(64, len(rp), 4))
+    config = {"IN": d + "/L1.asdf", "CALDIR": caldir, "SKYORDER": 2}
+    pack = calfiles.load_caldir_cached(caldir)
+    l1 = asdf_lite.open(config["IN"])["roman"]
+    area = np.ones((64, 64), np.float32)
+    first = l1_to_l2.prepare_inputs(l1, config, pack, area, device=cuda_device)
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        again = l1_to_l2.prepare_inputs(l1, config, pack, area, device=cuda_device)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters["h2d_pinned_bytes"] == counters["h2d_bytes"] > l1["data"].nbytes
+    assert "pack_staged_bytes" not in counters
+    for k in ("data", "amp33", "area_factor", "opt_slope"):
+        assert torch.equal(first["arr"][k], again["arr"][k]), k
+    assert again["arr"]["opt_slope"].shape == ()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [128, 4096])
 def test_product_maps_on_the_card_match_numpy(cuda_device, n):

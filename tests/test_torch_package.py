@@ -311,6 +311,88 @@ def test_fetch_from_the_cpu_shares_storage_and_pins_nothing(dtype, dq):
         np.testing.assert_array_equal(a, t.numpy().view(a.dtype))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.uint32])
+def test_stage_on_the_cpu_shares_the_buffer_and_pins_nothing(dtype):
+    """On the CPU an uncached ``stage`` shares the host array's buffer (a
+    uint32 DQ plane as int32 bit patterns), counts ``h2d_bytes`` and
+    leaves ``h2d_pinned_bytes`` at 0: only a copy to a CUDA device goes
+    through page-locked memory."""
+    a = np.arange(12, dtype=dtype).reshape(3, 4)
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        t = staging.stage(a, "cpu", cache=False)
+        placed = staging.place(a, "cpu")
+    counters = profiling.snapshot()["counters"]
+    assert counters["h2d_bytes"] == 2 * a.nbytes
+    assert counters.get("h2d_pinned_bytes", 0) == 0
+    for got in (t, placed):
+        assert np.shares_memory(got.numpy(), a) and got.shape == (3, 4)
+        np.testing.assert_array_equal(got.numpy().view(dtype), a)
+
+
+def _fill_cases():
+    """Host arrays of each kind a per-call copy takes, small."""
+    rng = np.random.default_rng(24)
+    with np.errstate(all="ignore"):
+        wide = np.ldexp(rng.standard_normal((6, 50)), rng.integers(-1100, 1100, (6, 50)))
+    wide[0, :4] = [np.nan, -np.inf, np.inf, -0.0]
+    f32 = rng.integers(0, 2**32, (7, 3, 4), dtype=np.uint32).view(np.float32)
+    u16 = rng.integers(0, 2**16, (5, 6, 9), dtype=np.uint16)
+    return {
+        "uint16": u16,
+        "uint32": rng.integers(0, 2**32, (6, 11), dtype=np.uint32),
+        "float32_bits": f32,
+        "float64": wide,
+        "uint16_strided": u16[:, ::2, 1::3],
+        "float32_transposed": f32.transpose(2, 0, 1),
+        "float32_reversed": f32[::-1],
+        "zero_d": np.float32(2.5),
+        "int64": rng.integers(-2**40, 2**40, (9, 4)),
+        "bool": rng.random((4, 5)) < 0.5,
+        "float32_big_endian": f32.astype(">f4"),
+        "empty": np.zeros((0, 5), np.float32),
+    }
+
+
+def _wire_numpy(a):
+    """The wire format as numpy makes it: uint16 and uint32 viewed as
+    int16 and int32, anything else converted to float32."""
+    a = np.asarray(a)
+    if a.dtype in (np.uint16, np.uint32):
+        return np.ascontiguousarray(a).view(np.int16 if a.dtype == np.uint16 else np.int32)
+    with np.errstate(over="ignore"):  # float64 beyond float32's range
+        return np.ascontiguousarray(a, np.float32)
+
+
+@pytest.mark.parametrize("case", sorted(_fill_cases()))
+def test_pinned_fill_gives_the_wire_format_bit_for_bit(monkeypatch, case):
+    """The per-call copy's fill and slicing (``staging._send_pinned``), run
+    on the CPU with an ordinary block for the page-locked one and slices
+    of 100 bytes (so a leading axis splits raggedly), and ``from_host``:
+    the bits of the wire format as numpy makes it, the array's own shape,
+    every byte on both counters; the fill copies the buffer, ``from_host``
+    shares it where the format allows."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *args, pin_memory=False, **kw: empty(*args, **kw))
+    monkeypatch.setattr(staging, "SLICE_BYTES", 100)
+    a = np.asarray(_fill_cases()[case])
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = staging._send_pinned(a, "cpu")
+    counters = profiling.snapshot()["counters"]
+    want = _wire_numpy(a)
+    assert counters["h2d_bytes"] == counters["h2d_pinned_bytes"] == want.nbytes
+    assert not np.shares_memory(got.numpy(), a)
+    shared = staging.from_host(a)
+    assert np.shares_memory(shared.numpy(), a) == (
+        a.dtype in (np.uint16, np.uint32, np.float32) and a.flags.c_contiguous and a.size > 0)
+    for t in (got, shared):
+        assert t.numpy().dtype == want.dtype and t.shape == np.shape(a)
+        np.testing.assert_array_equal(t.numpy().reshape(-1).view(np.uint8),
+                                      want.reshape(-1).view(np.uint8))
+
+
 def test_pack_staged_by_the_sim_is_a_hit_for_prepare_inputs(small):
     """The sim and the L1 -> L2 calibration stage a cal pack through the one
     cache: what ``make_l1_fullcal`` staged, ``prepare_inputs`` reuses on
